@@ -1,5 +1,5 @@
 """Trained binary-code quality: dense cosine vs 250-bit Hamming serving on
-the SAME encoder embeddings (the quality half of VERDICT r1 item 3).
+the SAME encoder embeddings.
 
 The reference's hashing serve path (fine_tune_ours.py:748-897) fine-tunes
 BinarizeHeads over frozen session embeddings, packs sign codes, and serves
@@ -10,7 +10,7 @@ triplet + pair losses, training/finetune.py), then retrieve the same query
 set three ways — dense cosine, UNTRAINED codes, TRAINED codes — and report
 ``ave_all_product_type_score``@k for each plus Hamming QPS.
 
-Run (TPU): python examples/binary_quality.py
+Run (GPU): python examples/binary_quality.py
 Smoke:     python examples/binary_quality.py --platform cpu --corpus 800 \
                --train 300 --queries 40 --epochs 2 --ft-epochs 2 --bits 32
 """
@@ -26,32 +26,32 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data import SyntheticSessionGenerator
-from sessionsimilaritysearch_tpu.data.augment import random_exchange_order
-from sessionsimilaritysearch_tpu.data.loader import (
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.data import SyntheticSessionGenerator
+from sessionsimilaritysearch.data.augment import random_exchange_order
+from sessionsimilaritysearch.data.loader import (
     ContrastiveViewLoader,
     SessionGraphLoader,
 )
-from sessionsimilaritysearch_tpu.data.similarity import get_ave_score, mine_triplets
-from sessionsimilaritysearch_tpu.evalharness.harness import (
+from sessionsimilaritysearch.data.similarity import get_ave_score, mine_triplets
+from sessionsimilaritysearch.evalharness.harness import (
     EmbeddingPipeline,
     evaluate_binary,
 )
-from sessionsimilaritysearch_tpu.index import build_index
-from sessionsimilaritysearch_tpu.tokenizer import get_tokenizer
-from sessionsimilaritysearch_tpu.training.finetune import (
+from sessionsimilaritysearch.index import build_index
+from sessionsimilaritysearch.tokenizer import get_tokenizer
+from sessionsimilaritysearch.training.finetune import (
     build_triplet_batches,
     create_finetune_state,
     make_code_fns,
     make_finetune_step,
 )
-from sessionsimilaritysearch_tpu.training.pretrain import (
+from sessionsimilaritysearch.training.pretrain import (
     PretrainModel,
     make_encode_fn,
     make_train_step,
 )
-from sessionsimilaritysearch_tpu.training.train_state import (
+from sessionsimilaritysearch.training.train_state import (
     adam_with_clip,
     create_train_state,
 )
@@ -72,8 +72,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     # encoder width: session_emb_dim = 2*gnn_nout. The r2 study ran at
     # gnn_nout=64 => 128-d sessions, where 250-bit codes are an EXPANSION
-    # and every code construction trivially preserves the geometry (VERDICT
-    # r2 weak 1). --flagship sets the reference's real operating point:
+    # and every code construction trivially preserves the geometry.
+    # --flagship sets the reference's real operating point:
     # 800/768 => 1600-d sessions, a genuine 6.4:1 compression to 250 bits
     # (model/model.py:254 with config.py:4,16).
     ap.add_argument("--flagship", action="store_true")
@@ -83,10 +83,16 @@ def main():
     ap.add_argument("--text-dim", type=int, default=64)
     ap.add_argument("--regime", default="clustered",
                     choices=["clustered", "adversarial"])
-    ap.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     args = ap.parse_args()
+    from sessionsimilaritysearch.runtime import (
+        enable_compile_cache,
+        force_platform,
+    )
+
     if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+        force_platform(args.platform)
+    enable_compile_cache()
     if args.flagship:
         args.gnn_nout = args.gnn_nhid = 800
         args.text_dim = 768
@@ -98,7 +104,7 @@ def main():
         batch_size=64, ctv_w=0.5, code_len=args.bits,
     )
     if args.regime == "adversarial":
-        from sessionsimilaritysearch_tpu.data import (
+        from sessionsimilaritysearch.data import (
             AdversarialSessionGenerator,
         )
 
@@ -147,7 +153,7 @@ def main():
     # effective dimensionality of the embeddings (participation ratio of
     # the covariance spectrum): the honest context for any "X% retained at
     # B bits" claim -- random projections preserve a low-effective-rank
-    # cloud far more easily than a full-rank one (VERDICT r2 weak 1)
+    # cloud far more easily than a full-rank one
     cen = ce - ce.mean(0, keepdims=True)
     sv = np.linalg.svd(cen[: min(len(cen), 8192)], compute_uv=False)
     lam = sv.astype(np.float64) ** 2
@@ -196,8 +202,8 @@ def main():
     # the CORPUS codes only — no labels, no triplets); on cone-collapsed
     # spectra it is the strongest code family because random hyperplanes
     # spend their bits on the shared mean direction.
-    from sessionsimilaritysearch_tpu.ops.hamming import simhash_codes
-    from sessionsimilaritysearch_tpu.ops.projection import fit_itq, itq_codes
+    from sessionsimilaritysearch.ops.hamming import simhash_codes
+    from sessionsimilaritysearch.ops.projection import fit_itq, itq_codes
 
     lsh_db = simhash_codes(ce, args.bits, seed=args.seed)
     lsh_q = simhash_codes(qe, args.bits, seed=args.seed)

@@ -1,4 +1,4 @@
-"""Flagship-scale training run (VERDICT r1 item 2).
+"""Flagship-scale training run.
 
 Runs pretrain and subsession training at the reference's REAL dimensions --
 gnn 800 / text 768 (=> 1600-d session embedding) with the full
@@ -45,18 +45,21 @@ def main():
 
     import jax
 
-    from sessionsimilaritysearch_tpu.config import Config
-    from sessionsimilaritysearch_tpu.data.loader import SessionGraphLoader
-    from sessionsimilaritysearch_tpu.data.synthetic import (
+    from sessionsimilaritysearch.runtime import enable_compile_cache
+
+    enable_compile_cache()
+    from sessionsimilaritysearch.config import Config
+    from sessionsimilaritysearch.data.loader import SessionGraphLoader
+    from sessionsimilaritysearch.data.synthetic import (
         SyntheticSessionGenerator,
     )
-    from sessionsimilaritysearch_tpu.tokenizer import get_tokenizer
-    from sessionsimilaritysearch_tpu.training.loop import (
+    from sessionsimilaritysearch.tokenizer import get_tokenizer
+    from sessionsimilaritysearch.training.loop import (
         run_training,
         to_device,
     )
-    from sessionsimilaritysearch_tpu.utils.checkpoint import CheckpointManager
-    from sessionsimilaritysearch_tpu.utils.logging import RunDir
+    from sessionsimilaritysearch.utils.checkpoint import CheckpointManager
+    from sessionsimilaritysearch.utils.logging import RunDir
 
     cfg = Config().replace(
         asin_num=args.asin_num,
@@ -86,7 +89,7 @@ def main():
 
     t0 = time.perf_counter()
     if args.phase == "pretrain":
-        from sessionsimilaritysearch_tpu.training.pretrain import (
+        from sessionsimilaritysearch.training.pretrain import (
             create_pretrain_state,
             make_train_step,
         )
@@ -94,7 +97,7 @@ def main():
         model, state = create_pretrain_state(cfg, rng, sample)
         raw_step = make_train_step(model, has_view=False)
     else:
-        from sessionsimilaritysearch_tpu.training.session_trainers import (
+        from sessionsimilaritysearch.training.session_trainers import (
             create_session_state,
             make_session_train_step,
         )
@@ -158,13 +161,13 @@ def main():
         ignore_query=cfg.ignore_query, seed=cfg.seed + 1,
     )
     if args.phase == "pretrain":
-        from sessionsimilaritysearch_tpu.training.pretrain import (
+        from sessionsimilaritysearch.training.pretrain import (
             create_pretrain_state as mk,
         )
 
         _, fresh = mk(cfg, rng, sample)
     else:
-        from sessionsimilaritysearch_tpu.training.session_trainers import (
+        from sessionsimilaritysearch.training.session_trainers import (
             create_session_state as mk,
         )
 

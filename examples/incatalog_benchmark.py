@@ -8,7 +8,7 @@ overlap, which is the exact signal SKNN matches on
 (evalharness.harness.evaluate_hybrid) fuses the learned embedding cosine
 with that overlap cosine, so it dominates both single systems here AND
 keeps the encoder's out-of-catalog generalization
-(examples/generalization_benchmark.py). Measured numbers: docs/RESULTS.md.
+(examples/generalization_benchmark.py).
 
 Run: python examples/incatalog_benchmark.py [--epochs 30] [--platform cpu]
 """
@@ -24,26 +24,26 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data import SyntheticSessionGenerator
-from sessionsimilaritysearch_tpu.data.augment import random_exchange_order
-from sessionsimilaritysearch_tpu.data.loader import (
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.data import SyntheticSessionGenerator
+from sessionsimilaritysearch.data.augment import random_exchange_order
+from sessionsimilaritysearch.data.loader import (
     ContrastiveViewLoader,
     SessionGraphLoader,
 )
-from sessionsimilaritysearch_tpu.data.similarity import get_ave_score
-from sessionsimilaritysearch_tpu.evalharness.harness import (
+from sessionsimilaritysearch.data.similarity import get_ave_score
+from sessionsimilaritysearch.evalharness.harness import (
     evaluate_hybrid,
     evaluate_sparse,
 )
-from sessionsimilaritysearch_tpu.index import build_index
-from sessionsimilaritysearch_tpu.tokenizer import get_tokenizer
-from sessionsimilaritysearch_tpu.training.pretrain import (
+from sessionsimilaritysearch.index import build_index
+from sessionsimilaritysearch.tokenizer import get_tokenizer
+from sessionsimilaritysearch.training.pretrain import (
     PretrainModel,
     make_encode_fn,
     make_train_step,
 )
-from sessionsimilaritysearch_tpu.training.train_state import (
+from sessionsimilaritysearch.training.train_state import (
     adam_with_clip,
     create_train_state,
 )
@@ -55,10 +55,16 @@ def main():
     ap.add_argument("--corpus", type=int, default=2000)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--alpha", type=float, default=0.5)
-    ap.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     args = ap.parse_args()
+    from sessionsimilaritysearch.runtime import (
+        enable_compile_cache,
+        force_platform,
+    )
+
     if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+        force_platform(args.platform)
+    enable_compile_cache()
 
     cfg = tiny_test_config(
         asin_num=1600, gnn_nout=64, gnn_nhid=64, emb_len=48,

@@ -1,5 +1,5 @@
-"""Three-pairing kNN next-item evaluation with TRAINED towers (VERDICT r3
-item 6 — the measured-numbers half; the capability itself is
+"""Three-pairing kNN next-item evaluation with TRAINED towers (the
+measured-numbers half; the capability itself is
 `harness.evaluate_knn_pairings` + `cli evaluate --mode knn --pairings`).
 
 The reference's Yoochoose `main()` builds BOTH a session and a subsession
@@ -17,13 +17,12 @@ alignment is what makes the CROSS pairing meaningful; `--towers joint`
 (default) reproduces it via training.session_trainers.JointModel.
 `--towers independent` trains the towers separately as an alignment
 ablation: on the clustered regime the within-space pairings hold while
-subsession->session collapses 10.7x to below the popularity floor
-(measured, docs/RESULTS.md r5, artifacts docs/knn_pairings_r5_*.json).
+subsession->session collapses to below the popularity floor.
 The adversarial regime is popularity-confounded for THIS protocol (its
 trending head makes a static popularity-top-20 beat every kNN pairing)
 — use clustered for alignment claims.
 
-Run (TPU):  python examples/knn_pairings.py --out docs/knn_pairings_r5_joint.json
+Run (GPU):  python examples/knn_pairings.py --out runs/knn_pairings_joint.json
 Smoke:      python examples/knn_pairings.py --platform cpu --tiny
 """
 
@@ -42,21 +41,21 @@ def run_regime(regime: str, args) -> dict:
     import jax
     import jax.numpy as jnp
 
-    from sessionsimilaritysearch_tpu.config import tiny_test_config
-    from sessionsimilaritysearch_tpu.data import (
+    from sessionsimilaritysearch.config import tiny_test_config
+    from sessionsimilaritysearch.data import (
         AdversarialSessionGenerator,
         SyntheticSessionGenerator,
     )
-    from sessionsimilaritysearch_tpu.data.loader import SessionGraphLoader
-    from sessionsimilaritysearch_tpu.evalharness import harness
-    from sessionsimilaritysearch_tpu.models.encoder import build_graph_encoder
-    from sessionsimilaritysearch_tpu.tokenizer import get_tokenizer
-    from sessionsimilaritysearch_tpu.training.loop import to_device
-    from sessionsimilaritysearch_tpu.training.session_trainers import (
+    from sessionsimilaritysearch.data.loader import SessionGraphLoader
+    from sessionsimilaritysearch.evalharness import harness
+    from sessionsimilaritysearch.models.encoder import build_graph_encoder
+    from sessionsimilaritysearch.tokenizer import get_tokenizer
+    from sessionsimilaritysearch.training.loop import to_device
+    from sessionsimilaritysearch.training.session_trainers import (
         create_session_state,
         make_session_train_step,
     )
-    from sessionsimilaritysearch_tpu.utils.precision import serving_params
+    from sessionsimilaritysearch.utils.precision import serving_params
 
     cfg = tiny_test_config(
         asin_num=args.asins, gnn_nout=args.gnn_nout, gnn_nhid=args.gnn_nhid,
@@ -103,11 +102,11 @@ def run_regime(regime: str, args) -> dict:
         makes the CROSS pairing (subsession query vs session corpus)
         meaningful — independently trained towers land in unrelated spaces
         and the cross row collapses (measured: the `independent` mode)."""
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.data.graph import (
             build_graph_batch,
             truncate_to_subsession,
         )
-        from sessionsimilaritysearch_tpu.training.session_trainers import (
+        from sessionsimilaritysearch.training.session_trainers import (
             create_joint_state,
             make_joint_train_step,
         )
@@ -211,15 +210,21 @@ def main():
     ap.add_argument("--gnn-nhid", type=int, default=256)
     ap.add_argument("--emb-len", type=int, default=128)
     ap.add_argument("--text-dim", type=int, default=256)
-    ap.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
     import jax
 
+    from sessionsimilaritysearch.runtime import (
+        enable_compile_cache,
+        force_platform,
+    )
+
     if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+        force_platform(args.platform)
+    enable_compile_cache()
     if args.tiny:
         args.corpus, args.train, args.queries = 512, 256, 32
         args.epochs, args.sample_size, args.asins = 2, 64, 1000

@@ -1,6 +1,5 @@
 """Multi-seed retrieval-quality protocol: encoder vs sparse baselines vs
-hybrid, with error bars (VERDICT r1 item 6: quality claims must survive a
-seed change).
+hybrid, with error bars (quality claims must survive a seed change).
 
 The reference evaluates on filtered-Amazon/Yoochoose
 (test_amazon_filterd.py:452-692); no public dump is reachable in this
@@ -11,7 +10,7 @@ fresh model init. Reported per system: mean +- std of
 ``ave_all_product_type_score``@10 across seeds (the reference's default
 similarity labeler, config.py:61).
 
-Run (TPU): python examples/quality_protocol.py
+Run (GPU): python examples/quality_protocol.py
 Smoke:     python examples/quality_protocol.py --platform cpu \
                --seeds 2 --corpus 2000 --train 500 --epochs 2
 """
@@ -29,28 +28,28 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data import (
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.data import (
     AdversarialSessionGenerator,
     SyntheticSessionGenerator,
 )
-from sessionsimilaritysearch_tpu.data.augment import random_exchange_order
-from sessionsimilaritysearch_tpu.data.loader import (
+from sessionsimilaritysearch.data.augment import random_exchange_order
+from sessionsimilaritysearch.data.loader import (
     ContrastiveViewLoader,
     SessionGraphLoader,
 )
-from sessionsimilaritysearch_tpu.data.similarity import get_ave_score
-from sessionsimilaritysearch_tpu.evalharness import metrics
-from sessionsimilaritysearch_tpu.evalharness.harness import evaluate_sparse
-from sessionsimilaritysearch_tpu.index import build_index, sparse as sparse_index
-from sessionsimilaritysearch_tpu.tokenizer import get_tokenizer
-from sessionsimilaritysearch_tpu.training.loop import to_device
-from sessionsimilaritysearch_tpu.training.pretrain import (
+from sessionsimilaritysearch.data.similarity import get_ave_score
+from sessionsimilaritysearch.evalharness import metrics
+from sessionsimilaritysearch.evalharness.harness import evaluate_sparse
+from sessionsimilaritysearch.index import build_index, sparse as sparse_index
+from sessionsimilaritysearch.tokenizer import get_tokenizer
+from sessionsimilaritysearch.training.loop import to_device
+from sessionsimilaritysearch.training.pretrain import (
     PretrainModel,
     make_encode_fn,
     make_train_step,
 )
-from sessionsimilaritysearch_tpu.training.train_state import (
+from sessionsimilaritysearch.training.train_state import (
     adam_with_clip,
     create_train_state,
 )
@@ -117,7 +116,7 @@ def run_seed(seed: int, args) -> dict:
         # subsession objective — the serving configuration of
         # examples/flagship_serving.py, protocol-grade here so pooling
         # variants (Config.product_pooling) get error bars
-        from sessionsimilaritysearch_tpu.training.session_trainers import (
+        from sessionsimilaritysearch.training.session_trainers import (
             create_session_state,
             make_session_train_step,
         )
@@ -140,10 +139,10 @@ def run_seed(seed: int, args) -> dict:
                 state, m = step(state, to_device(b), sub)
         t_train = time.time() - t0
 
-        from sessionsimilaritysearch_tpu.models.encoder import (
+        from sessionsimilaritysearch.models.encoder import (
             build_graph_encoder,
         )
-        from sessionsimilaritysearch_tpu.utils.precision import (
+        from sessionsimilaritysearch.utils.precision import (
             serving_params,
         )
 
@@ -317,10 +316,10 @@ def main():
                     choices=["clustered", "adversarial"],
                     help="'adversarial' = overlap-hostile generator "
                          "(power-law popularity, cross-type trending head, "
-                         "hierarchical taxonomy, title synonymy; VERDICT r2 "
-                         "item 2) where SKNN is NOT near-oracle")
+                         "hierarchical taxonomy, title synonymy) where "
+                         "SKNN is NOT near-oracle")
     # encoder width (session dim = 2*gnn_nout); defaults match the r2 runs,
-    # raise for flagship-width evidence (VERDICT r2 item 1)
+    # raise for flagship-width evidence
     ap.add_argument("--gnn-nout", type=int, default=64)
     ap.add_argument("--gnn-nhid", type=int, default=64)
     ap.add_argument("--emb-len", type=int, default=48)
@@ -330,10 +329,16 @@ def main():
                     help="out-of-catalog: corpus/queries from disjoint "
                          "catalog halves (use a smaller --corpus; sessions "
                          "are rejection-sampled)")
-    ap.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     args = ap.parse_args()
+    from sessionsimilaritysearch.runtime import (
+        enable_compile_cache,
+        force_platform,
+    )
+
     if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+        force_platform(args.platform)
+    enable_compile_cache()
     args.alpha_sweep = [
         float(a) for a in args.alpha_sweep.split(",") if a.strip()
     ]

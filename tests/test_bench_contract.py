@@ -1,7 +1,7 @@
 """Driver-contract smoke: bench.py must print ONE parseable JSON line with
-the required keys (the driver records it as BENCH_r{N}.json every round).
-Runs the CPU fallback shapes in a subprocess (the real-TPU numbers are the
-bench's job, not this test's)."""
+the required keys.
+Runs the toy shapes of a forced-CPU run in a subprocess (the GPU numbers
+are the bench's job, not this test's)."""
 
 import json
 import os
@@ -39,3 +39,4 @@ def test_bench_emits_one_json_line_with_required_keys():
     assert any(k.startswith("binary_sign_qps") for k in rec)
     assert "int8x8_qps" in rec and "int8x8_approx_qps" in rec
     assert rec["int8x8_value_recall10"] >= 0.99
+

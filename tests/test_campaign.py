@@ -1,4 +1,4 @@
-"""Campaign driver crash/resume drill, tiny (VERDICT r3 item 2).
+"""Campaign driver crash/resume drill, tiny.
 
 Runs examples/flagship_campaign.py twice as REAL subprocesses: the first
 invocation hard-exits (os._exit 3) mid-epoch at a step that is not a

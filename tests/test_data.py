@@ -5,15 +5,15 @@ labelers, synthetic generator."""
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data import schema
-from sessionsimilaritysearch_tpu.data.graph import (
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.data import schema
+from sessionsimilaritysearch.data.graph import (
     batch_graphs,
     sequence_to_graph,
     truncate_to_subsession,
 )
-from sessionsimilaritysearch_tpu.data import levenshtein, similarity
-from sessionsimilaritysearch_tpu.tokenizer import (
+from sessionsimilaritysearch.data import levenshtein, similarity
+from sessionsimilaritysearch.tokenizer import (
     CLS_ID,
     HashTokenizer,
     NUM_SPECIAL,
@@ -254,7 +254,7 @@ class TestSynthetic:
         assert len(schema.get_item(s)) >= 1
 
     def test_clustered_similarity_signal(self):
-        from sessionsimilaritysearch_tpu.data.synthetic import (
+        from sessionsimilaritysearch.data.synthetic import (
             SyntheticSessionGenerator,
         )
 
@@ -268,20 +268,20 @@ class TestSynthetic:
 
 
 class TestAdversarialSynthetic:
-    """The overlap-hostile regime (VERDICT r2 item 2): item overlap must be
+    """The overlap-hostile regime: item overlap must be
     a WEAK similarity signal while the type structure stays intact."""
 
     @pytest.fixture(scope="class")
     def agen(self):
-        from sessionsimilaritysearch_tpu.data.synthetic import (
+        from sessionsimilaritysearch.data.synthetic import (
             AdversarialSessionGenerator,
         )
 
         return AdversarialSessionGenerator(asin_num=2000, seed=3)
 
     def test_schema_conformance_and_graph_build(self, agen, tokenizer):
-        from sessionsimilaritysearch_tpu.config import tiny_test_config
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.config import tiny_test_config
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
@@ -330,8 +330,8 @@ class TestAdversarialSynthetic:
     def test_overlap_is_weak_evidence(self, agen):
         """THE regime property: overlap-ranked retrieval (SKNN's mechanism)
         scores far below the type-score oracle, unlike the clustered
-        generator where it is near-oracle (docs/RESULTS.md)."""
-        from sessionsimilaritysearch_tpu.data.similarity import get_score
+        generator where it is near-oracle."""
+        from sessionsimilaritysearch.data.similarity import get_score
 
         corpus = [(agen.session(), []) for _ in range(600)]
         queries = [(agen.session(), []) for _ in range(25)]

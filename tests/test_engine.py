@@ -4,17 +4,17 @@ import jax
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.engine import SessionSearchEngine
-from sessionsimilaritysearch_tpu.models import build_text_session_encoder
-from sessionsimilaritysearch_tpu.parallel import create_mesh
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.engine import SessionSearchEngine
+from sessionsimilaritysearch.models import build_text_session_encoder
+from sessionsimilaritysearch.parallel import create_mesh
 
 
 @pytest.fixture(scope="module")
 def engine_parts(gen, tokenizer):
     cfg = tiny_test_config()
     enc = build_text_session_encoder(cfg)
-    from sessionsimilaritysearch_tpu.data.graph import (
+    from sessionsimilaritysearch.data.graph import (
         batch_graphs,
         sequence_to_graph,
     )
@@ -150,7 +150,7 @@ class TestEngine:
         """save_async must persist the CAPTURE point: mutations (add +
         remove) racing the background write must not leak into the
         snapshot, and searches keep answering while it streams."""
-        from sessionsimilaritysearch_tpu.data.synthetic import (
+        from sessionsimilaritysearch.data.synthetic import (
             SyntheticSessionGenerator,
         )
 
@@ -192,8 +192,8 @@ class TestEngine:
                                              monkeypatch):
         """restore() must drop the live index BEFORE the snapshot load
         materializes the new one — holding both capacity-sized corpora
-        doubles HBM mid-restore (a 1M x 1600 f32 engine OOMs a 16 GB
-        chip exactly when restore is most needed; serving_soak r4)."""
+        doubles device memory mid-restore, which can run a device out of
+        memory exactly when restore is most needed."""
         cfg, encode_fn = engine_parts
         eng = SessionSearchEngine(
             cfg, tokenizer, encode_fn, dim=cfg.n_out, capacity=128,
@@ -204,7 +204,7 @@ class TestEngine:
         prefix = str(tmp_path / "snap")
         eng.save(prefix)
 
-        from sessionsimilaritysearch_tpu.index.dense import DenseIndex
+        from sessionsimilaritysearch.index.dense import DenseIndex
 
         real_load = DenseIndex.load.__func__
         seen = {}
@@ -287,7 +287,7 @@ class TestEngine:
         # alpha=0 ranks candidates purely by item overlap: the query's own
         # session (overlap cos = 1) must rank first
         D0, I0 = eng.search(data[:4], k=5, hybrid_alpha=0.0)
-        from sessionsimilaritysearch_tpu.engine import _item_set, _overlap_cos
+        from sessionsimilaritysearch.engine import _item_set, _overlap_cos
         for r in range(4):
             q_items = _item_set(data[r][0])
             assert _overlap_cos(q_items, eng._items[int(I0[r, 0])]) == 1.0
@@ -310,7 +310,7 @@ def _bare_engine(n_rows: int, rng: np.random.Generator, max_items=12,
                  asin_num=50_000) -> SessionSearchEngine:
     """Engine shell with synthetic per-row metadata (no encoder/index work):
     exercises the vectorized query-path helpers at serving shapes."""
-    from sessionsimilaritysearch_tpu.engine import _GrowArr, _session_key
+    from sessionsimilaritysearch.engine import _GrowArr, _session_key
 
     eng = SessionSearchEngine.__new__(SessionSearchEngine)
     eng._key_to_id = {}
@@ -341,12 +341,12 @@ def _bare_engine(n_rows: int, rng: np.random.Generator, max_items=12,
 
 
 class TestVectorizedQueryPaths:
-    """The re-rank/dedup helpers at serving shapes (VERDICT r1 item 7):
+    """The re-rank/dedup helpers at serving shapes:
     equality vs a straightforward per-candidate reference, plus a latency
     budget that a per-row-per-candidate Python loop cannot meet."""
 
     def _slow_hybrid(self, eng, D2, gid, q_sets, k, alpha):
-        from sessionsimilaritysearch_tpu.engine import _overlap_cos
+        from sessionsimilaritysearch.engine import _overlap_cos
 
         q, m = D2.shape
         D = np.full((q, k), -np.inf, dtype=np.float32)
@@ -383,7 +383,7 @@ class TestVectorizedQueryPaths:
         np.testing.assert_allclose(D, Ds, atol=1e-5)
 
     def _slow_rrf(self, eng, D2, gid, q_sets, k, k0=60.0):
-        from sessionsimilaritysearch_tpu.engine import _overlap_cos
+        from sessionsimilaritysearch.engine import _overlap_cos
 
         q, m = D2.shape
         D = np.full((q, k), -np.inf, dtype=np.float32)
@@ -540,11 +540,11 @@ class TestEngineQuantized:
 class TestStanHybrid:
     """hybrid_kind='stan': recency-decayed sparse term in the fusion
     re-rank (round 3 -- on overlap-hostile data STAN is the stronger
-    sparse signal, docs/RESULTS.md)."""
+    sparse signal)."""
 
     def test_stan_weights_match_sparse_vec(self, gen):
-        from sessionsimilaritysearch_tpu.engine import _item_stan_weights
-        from sessionsimilaritysearch_tpu.index.sparse import (
+        from sessionsimilaritysearch.engine import _item_stan_weights
+        from sessionsimilaritysearch.index.sparse import (
             sequence_to_stan_vec,
         )
 
@@ -576,7 +576,7 @@ class TestStanHybrid:
                             hybrid_kind="stan")
         np.testing.assert_array_equal(Io, Is)
         # alpha=0, stan: ranking == STAN cosine vs stored sessions
-        from sessionsimilaritysearch_tpu.index.sparse import (
+        from sessionsimilaritysearch.index.sparse import (
             sequence_to_stan_vec,
         )
 

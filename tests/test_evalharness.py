@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data import schema
-from sessionsimilaritysearch_tpu.evalharness import harness, knn, metrics
-from sessionsimilaritysearch_tpu.index import sparse as sparse_index
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.data import schema
+from sessionsimilaritysearch.evalharness import harness, knn, metrics
+from sessionsimilaritysearch.index import sparse as sparse_index
 
 
 def _session(items):
@@ -125,8 +125,8 @@ class TestKnn:
 class TestHarness:
     def test_evaluate_encoder_end_to_end(self, gen, tokenizer):
         cfg = tiny_test_config()
-        from sessionsimilaritysearch_tpu.models import build_text_session_encoder
-        from sessionsimilaritysearch_tpu.data.graph import batch_graphs
+        from sessionsimilaritysearch.models import build_text_session_encoder
+        from sessionsimilaritysearch.data.graph import batch_graphs
 
         enc = build_text_session_encoder(cfg)
         corpus_data = gen.dataset(12)
@@ -136,7 +136,7 @@ class TestHarness:
 
         sample = batch_graphs([
             __import__(
-                "sessionsimilaritysearch_tpu.data.graph", fromlist=["sequence_to_graph"]
+                "sessionsimilaritysearch.data.graph", fromlist=["sequence_to_graph"]
             ).sequence_to_graph(0, corpus_data[0][0], corpus_data[0][1],
                                 tokenizer, cfg.dims)
         ])
@@ -156,13 +156,13 @@ class TestHarness:
         cfg = tiny_test_config()
         import jax
 
-        from sessionsimilaritysearch_tpu.models import (
+        from sessionsimilaritysearch.models import (
             build_text_session_encoder,
         )
 
         enc = build_text_session_encoder(cfg)
         data = gen.dataset(13)  # non-multiple of batch: exercises the slice
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
@@ -202,8 +202,8 @@ class TestHarness:
 class TestKnnRecommendationMode:
     def test_evaluate_knn_recommendation(self, gen, tokenizer):
         cfg = tiny_test_config()
-        from sessionsimilaritysearch_tpu.models import build_text_session_encoder
-        from sessionsimilaritysearch_tpu.data.graph import batch_graphs, sequence_to_graph
+        from sessionsimilaritysearch.models import build_text_session_encoder
+        from sessionsimilaritysearch.data.graph import batch_graphs, sequence_to_graph
 
         enc = build_text_session_encoder(cfg)
         sample = batch_graphs([
@@ -222,12 +222,12 @@ class TestKnnRecommendationMode:
 
     def test_evaluate_knn_pairings(self, gen, tokenizer):
         # the reference's three query/db pairing matrix
-        # (test_amazon_filterd.py:189-201; VERDICT r3 task 6)
+        # (test_amazon_filterd.py:189-201)
         cfg = tiny_test_config()
-        from sessionsimilaritysearch_tpu.models import (
+        from sessionsimilaritysearch.models import (
             build_text_session_encoder,
         )
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
@@ -260,11 +260,11 @@ class TestKnnRecommendationMode:
 
 class TestHybrid:
     def _encode_fn(self, tokenizer, data):
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
-        from sessionsimilaritysearch_tpu.models import (
+        from sessionsimilaritysearch.models import (
             build_text_session_encoder,
         )
 

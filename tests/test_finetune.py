@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.training.finetune import (
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.training.finetune import (
     FinetuneState,
     TripletBatch,
     build_triplet_batches,
@@ -139,7 +139,7 @@ class TestSharedInit:
 
     def test_ft_lr_used_for_head_training(self):
         """Config.ft_lr (default 3e-5) drives the fine-tune optimizer; the
-        encoder lr (3e-4) overshoots the tiny heads (docs/RESULTS.md)."""
+        encoder lr (3e-4) overshoots the tiny heads."""
         cfg = tiny_test_config()
         assert cfg.ft_lr == pytest.approx(3e-5)
         assert (cfg.ft_lr or cfg.lr) != cfg.lr

@@ -9,21 +9,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data import etl
-from sessionsimilaritysearch_tpu.data.loader import SessionGraphLoader, TupleLoader
-from sessionsimilaritysearch_tpu.data.graph import sequence_to_graph
-from sessionsimilaritysearch_tpu.utils.checkpoint import (
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.data import etl
+from sessionsimilaritysearch.data.loader import SessionGraphLoader, TupleLoader
+from sessionsimilaritysearch.data.graph import sequence_to_graph
+from sessionsimilaritysearch.utils.checkpoint import (
     CheckpointManager,
     state_to_tree,
     tree_to_state,
 )
-from sessionsimilaritysearch_tpu.utils.logging import (
+from sessionsimilaritysearch.utils.logging import (
     MetricLogger,
     RunDir,
     read_metrics,
 )
-from sessionsimilaritysearch_tpu.utils.profiling import PhaseTimer
+from sessionsimilaritysearch.utils.profiling import PhaseTimer
 
 
 class TestLoader:
@@ -125,9 +125,93 @@ class TestCheckpoint:
         np.testing.assert_array_equal(back["a"], tree["a"])
         assert int(np.asarray(back["nested"]["b"])) == 3
 
+    def test_npz_fallback_roundtrip(self, tmp_path):
+        """Without orbax each tag is one .npz keyed by tree path; restore
+        rebuilds the template's structure, or nested dicts without one."""
+        tree = {
+            "a": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "nested": {"b": np.asarray(3), "c": jnp.ones((2,), jnp.bfloat16)},
+        }
+        cm = CheckpointManager(str(tmp_path / "ck"), use_orbax=False)
+        cm.save("latest", tree)
+        assert cm.has("latest")
+        assert os.path.exists(str(tmp_path / "ck" / "latest.npz"))
+        back = cm.restore("latest", tree)
+        assert jax.tree.structure(back) == jax.tree.structure(tree)
+        for x, y in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+            assert np.asarray(x).dtype == np.asarray(y).dtype
+        raw = cm.restore("latest")
+        np.testing.assert_array_equal(raw["nested"]["b"], 3)
+        assert cm.restore("missing") is None
+
+    def test_train_state_npz_roundtrip(self, tmp_path, gen, tokenizer):
+        """A trained TrainState (params, Adam state, step) survives the
+        .npz fallback and keeps training."""
+        from sessionsimilaritysearch.data.graph import batch_graphs
+        from sessionsimilaritysearch.training.pretrain import (
+            create_pretrain_state,
+            make_train_step,
+        )
+
+        cfg = tiny_test_config()
+        graphs = [
+            sequence_to_graph(i, *d, tokenizer, cfg.dims)
+            for i, d in enumerate(gen.dataset(4))
+        ]
+        batch = jax.tree.map(jnp.asarray, batch_graphs(graphs))
+        rng = jax.random.PRNGKey(0)
+        model, state = create_pretrain_state(cfg, rng, batch)
+        step = make_train_step(model, has_view=False)
+        state, _ = step(state, batch, rng)
+
+        cm = CheckpointManager(str(tmp_path / "ck"), use_orbax=False)
+        cm.save("latest", state_to_tree(state))
+        _, fresh = create_pretrain_state(cfg, rng, batch)
+        restored = tree_to_state(
+            fresh, cm.restore("latest", state_to_tree(fresh))
+        )
+        assert int(restored.step) == 1
+        for a, b in zip(jax.tree.leaves((state.params, state.opt_state)),
+                        jax.tree.leaves((restored.params,
+                                         restored.opt_state))):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        _, m = step(restored, batch, rng)
+        assert np.isfinite(float(m["loss"]))
+
+    def test_train_state_is_a_pytree(self):
+        """TrainState flattens to step, params, opt_state and batch_stats;
+        apply_fn and tx are static, so jit takes it whole and returns it
+        with the same static parts."""
+        import optax
+
+        from sessionsimilaritysearch.training.train_state import TrainState
+
+        params = {"w": jnp.arange(3.0), "b": jnp.zeros(())}
+        tx = optax.sgd(0.5)
+        apply_fn = lambda p, x: p["w"] * x + p["b"]  # noqa: E731
+        state = TrainState.create(apply_fn=apply_fn, params=params, tx=tx,
+                                  batch_stats={"m": jnp.ones(2)})
+        leaves, treedef = jax.tree.flatten(state)
+        assert len(leaves) == 1 + 2 + len(jax.tree.leaves(tx.init(params))) + 1
+        back = jax.tree.unflatten(treedef, leaves)
+        assert back.apply_fn is apply_fn and back.tx is tx
+
+        @jax.jit
+        def train(s):
+            g = jax.grad(lambda p: s.apply_fn(p, 2.0).sum())(s.params)
+            return s.apply_gradients(grads=g)
+
+        new = train(state)
+        assert int(new.step) == 1 and new.tx is tx
+        np.testing.assert_allclose(np.asarray(new.params["w"]),
+                                   np.arange(3.0) - 1.0)
+        np.testing.assert_allclose(float(new.params["b"]), -1.5)
+        np.testing.assert_array_equal(np.asarray(new.batch_stats["m"]), 1.0)
+
     def test_train_state_roundtrip(self, tmp_path, gen, tokenizer):
-        from sessionsimilaritysearch_tpu.data.graph import batch_graphs
-        from sessionsimilaritysearch_tpu.training.pretrain import (
+        from sessionsimilaritysearch.data.graph import batch_graphs
+        from sessionsimilaritysearch.training.pretrain import (
             create_pretrain_state,
             make_train_step,
         )
@@ -184,13 +268,13 @@ class TestLoggingProfiling:
 
 class TestTrainingLoop:
     def test_loop_with_resume(self, tmp_path, gen, tokenizer):
-        from sessionsimilaritysearch_tpu.training.loop import run_training
-        from sessionsimilaritysearch_tpu.training.pretrain import (
+        from sessionsimilaritysearch.training.loop import run_training
+        from sessionsimilaritysearch.training.pretrain import (
             create_pretrain_state,
             make_eval_step,
             make_train_step,
         )
-        from sessionsimilaritysearch_tpu.data.graph import batch_graphs
+        from sessionsimilaritysearch.data.graph import batch_graphs
 
         cfg = tiny_test_config()
         data = gen.dataset(8)
@@ -237,15 +321,15 @@ class TestTrainingLoop:
 
 class TestContrastiveViewLoader:
     def test_pairs(self, gen, tokenizer, tiny_cfg):
-        from sessionsimilaritysearch_tpu.data.augment import (
+        from sessionsimilaritysearch.data.augment import (
             random_exchange_order,
         )
-        from sessionsimilaritysearch_tpu.data.loader import (
+        from sessionsimilaritysearch.data.loader import (
             ContrastiveViewLoader,
             SessionGraphLoader,
         )
 
-        from sessionsimilaritysearch_tpu.data.synthetic import (
+        from sessionsimilaritysearch.data.synthetic import (
             SyntheticSessionGenerator,
         )
 
@@ -266,12 +350,12 @@ class TestContrastiveViewLoader:
 class TestNanRecovery:
     def test_rollback_on_nan(self, tmp_path, gen, tokenizer):
         """A poisoned batch must not corrupt the state."""
-        from sessionsimilaritysearch_tpu.training.loop import run_training
-        from sessionsimilaritysearch_tpu.training.pretrain import (
+        from sessionsimilaritysearch.training.loop import run_training
+        from sessionsimilaritysearch.training.pretrain import (
             create_pretrain_state,
             make_train_step,
         )
-        from sessionsimilaritysearch_tpu.data.graph import batch_graphs
+        from sessionsimilaritysearch.data.graph import batch_graphs
 
         cfg = tiny_test_config()
         data = gen.dataset(4)
@@ -315,12 +399,12 @@ class TestSanitizers:
 
     def test_train_step_clean_under_debug_nans(self, gen, tokenizer):
         """The real pretrain step produces no NaNs with NaN trapping on."""
-        from sessionsimilaritysearch_tpu.data.graph import batch_graphs
-        from sessionsimilaritysearch_tpu.training.pretrain import (
+        from sessionsimilaritysearch.data.graph import batch_graphs
+        from sessionsimilaritysearch.training.pretrain import (
             create_pretrain_state,
             make_train_step,
         )
-        from sessionsimilaritysearch_tpu.utils.sanitize import debug_nans
+        from sessionsimilaritysearch.utils.sanitize import debug_nans
 
         cfg = tiny_test_config()
         data = gen.dataset(4)
@@ -340,7 +424,7 @@ class TestSanitizers:
         assert np.isfinite(float(m["loss"]))
 
     def test_debug_nans_traps(self):
-        from sessionsimilaritysearch_tpu.utils.sanitize import debug_nans
+        from sessionsimilaritysearch.utils.sanitize import debug_nans
 
         @jax.jit
         def bad(x):
@@ -353,7 +437,7 @@ class TestSanitizers:
         assert np.isnan(np.asarray(bad(jnp.asarray(-1.0))))
 
     def test_assert_pure_passes_and_catches(self):
-        from sessionsimilaritysearch_tpu.utils.sanitize import assert_pure
+        from sessionsimilaritysearch.utils.sanitize import assert_pure
 
         @jax.jit
         def pure(x):
@@ -373,12 +457,12 @@ class TestSanitizers:
     def test_train_step_is_pure(self, gen, tokenizer):
         """Two identical train-step calls produce bit-identical states --
         the functional-path race/impurity check."""
-        from sessionsimilaritysearch_tpu.data.graph import batch_graphs
-        from sessionsimilaritysearch_tpu.training.pretrain import (
+        from sessionsimilaritysearch.data.graph import batch_graphs
+        from sessionsimilaritysearch.training.pretrain import (
             create_pretrain_state,
             make_train_step,
         )
-        from sessionsimilaritysearch_tpu.utils.sanitize import assert_pure
+        from sessionsimilaritysearch.utils.sanitize import assert_pure
 
         cfg = tiny_test_config()
         data = gen.dataset(4)
@@ -395,8 +479,8 @@ class TestSanitizers:
         assert_pure(lambda: step(state, batch, rng)[1]["loss"])
 
     def test_assert_donates(self):
-        from sessionsimilaritysearch_tpu.index.dense import _write_rows
-        from sessionsimilaritysearch_tpu.utils.sanitize import (
+        from sessionsimilaritysearch.index.dense import _write_rows
+        from sessionsimilaritysearch.utils.sanitize import (
             assert_donates,
         )
 
@@ -415,8 +499,8 @@ class TestSanitizers:
 
 class TestYoochooseFormat:
     def test_item_sequences_roundtrip(self):
-        from sessionsimilaritysearch_tpu.data import schema
-        from sessionsimilaritysearch_tpu.data.etl import (
+        from sessionsimilaritysearch.data import schema
+        from sessionsimilaritysearch.data.etl import (
             sessions_from_item_sequences,
         )
 
@@ -430,7 +514,7 @@ class TestPrecision:
     def test_cast_floats(self):
         import jax.numpy as jnp
 
-        from sessionsimilaritysearch_tpu.utils.precision import serving_params
+        from sessionsimilaritysearch.utils.precision import serving_params
 
         tree = {"w": jnp.ones((2, 2), jnp.float32), "ids": jnp.ones(3, jnp.int32)}
         out = serving_params(tree)
@@ -441,12 +525,12 @@ class TestPrecision:
         import jax
         import jax.numpy as jnp
 
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
-        from sessionsimilaritysearch_tpu.models import build_graph_encoder
-        from sessionsimilaritysearch_tpu.utils.precision import serving_params
+        from sessionsimilaritysearch.models import build_graph_encoder
+        from sessionsimilaritysearch.utils.precision import serving_params
 
         enc = build_graph_encoder(tiny_cfg)
         batch = jax.tree.map(
@@ -504,8 +588,8 @@ class TestShardedCheckpoint:
         import jax.numpy as jnp
         from jax.sharding import NamedSharding, PartitionSpec as P
 
-        from sessionsimilaritysearch_tpu.parallel import create_mesh
-        from sessionsimilaritysearch_tpu.utils.checkpoint import (
+        from sessionsimilaritysearch.parallel import create_mesh
+        from sessionsimilaritysearch.utils.checkpoint import (
             restore_sharded,
             save_sharded,
         )
@@ -556,11 +640,11 @@ class TestShardedCheckpoint:
         import jax
         import jax.numpy as jnp
 
-        from sessionsimilaritysearch_tpu.index.sharded import (
+        from sessionsimilaritysearch.index.sharded import (
             ShardedDenseIndex,
         )
-        from sessionsimilaritysearch_tpu.parallel import create_mesh
-        from sessionsimilaritysearch_tpu.utils.checkpoint import (
+        from sessionsimilaritysearch.parallel import create_mesh
+        from sessionsimilaritysearch.utils.checkpoint import (
             restore_sharded,
             save_sharded,
         )

@@ -1,5 +1,5 @@
 """Integration tests: the reference's end-to-end call stacks (SURVEY.md §3)
-reproduced on the TPU-native stack, plus the NaN-sanitizer mode that
+reproduced on this stack, plus the NaN-sanitizer mode that
 replaces the reference's assert storm (SURVEY.md §5)."""
 
 import jax
@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data.graph import batch_graphs, sequence_to_graph
-from sessionsimilaritysearch_tpu.data.loader import SessionGraphLoader
-from sessionsimilaritysearch_tpu.data.similarity import get_ave_score, mine_triplets
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.data.graph import batch_graphs, sequence_to_graph
+from sessionsimilaritysearch.data.loader import SessionGraphLoader
+from sessionsimilaritysearch.data.similarity import get_ave_score, mine_triplets
 
 
 class TestPretrainToServeStack:
@@ -18,8 +18,8 @@ class TestPretrainToServeStack:
     evaluate, all through public APIs."""
 
     def test_full_stack(self, gen, tokenizer):
-        from sessionsimilaritysearch_tpu.engine import SessionSearchEngine
-        from sessionsimilaritysearch_tpu.training.pretrain import (
+        from sessionsimilaritysearch.engine import SessionSearchEngine
+        from sessionsimilaritysearch.training.pretrain import (
             create_pretrain_state,
             make_encode_fn,
             make_train_step,
@@ -55,10 +55,10 @@ class TestPretrainToServeStack:
     def test_finetune_hash_serve_stack(self, gen, tokenizer, rng):
         """SURVEY §3.2-3.3: frozen embeddings -> alternating hash fine-tune
         -> hard codes -> Hamming serve -> ground-truth report."""
-        from sessionsimilaritysearch_tpu.evalharness.harness import (
+        from sessionsimilaritysearch.evalharness.harness import (
             evaluate_binary,
         )
-        from sessionsimilaritysearch_tpu.training.finetune import (
+        from sessionsimilaritysearch.training.finetune import (
             build_triplet_batches,
             create_finetune_state,
             make_code_fns,
@@ -118,7 +118,7 @@ class TestNaNSanitizer:
     per-stage NaN asserts (model/model.py:223-247 etc.)."""
 
     def test_pretrain_step_clean_under_debug_nans(self, gen, tokenizer):
-        from sessionsimilaritysearch_tpu.training.pretrain import (
+        from sessionsimilaritysearch.training.pretrain import (
             create_pretrain_state,
             make_train_step,
         )

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.training import losses
+from sessionsimilaritysearch.training import losses
 
 
 class TestContrastive:

@@ -1,14 +1,14 @@
 """Model zoo tests: shapes, masking invariants, hand-checked math for each
-Flax module (SURVEY.md §4's prescribed numerical tests)."""
+module (SURVEY.md §4's prescribed numerical tests)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data.graph import batch_graphs, sequence_to_graph
-from sessionsimilaritysearch_tpu.models import (
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.data.graph import batch_graphs, sequence_to_graph
+from sessionsimilaritysearch.models import (
     MLP,
     BinarizeHead,
     CrossAttentionTransformer,
@@ -25,7 +25,7 @@ from sessionsimilaritysearch_tpu.models import (
     build_pretrain_encoder,
     build_text_session_encoder,
 )
-from sessionsimilaritysearch_tpu.models.pooling import (
+from sessionsimilaritysearch.models.pooling import (
     AttentionPooling,
     GraphPooling,
     PositionalAttentionPooling,
@@ -34,8 +34,8 @@ from sessionsimilaritysearch_tpu.models.pooling import (
     masked_mean,
     masked_sum,
 )
-from sessionsimilaritysearch_tpu.models.transformer import causal_mask
-from sessionsimilaritysearch_tpu.tokenizer import HashTokenizer
+from sessionsimilaritysearch.models.transformer import causal_mask
+from sessionsimilaritysearch.tokenizer import HashTokenizer
 
 
 @pytest.fixture(scope="module")
@@ -201,7 +201,7 @@ class TestPoolings:
         assert out.shape == (4, 5)
 
     def test_recency_srgnn_pooling(self, batch, rng):
-        from sessionsimilaritysearch_tpu.models.pooling import (
+        from sessionsimilaritysearch.models.pooling import (
             RecencySRGNNPooling,
         )
 
@@ -236,7 +236,7 @@ class TestPoolings:
         """Small lambda concentrates the recency stream on the most recent
         occurrence: shrinking raw_lambda must move the rep toward the
         last-occurrence product state."""
-        from sessionsimilaritysearch_tpu.models.pooling import (
+        from sessionsimilaritysearch.models.pooling import (
             RecencySRGNNPooling,
         )
 
@@ -458,7 +458,7 @@ class TestConvKeys:
         assert np.isfinite(np.asarray(out["product"])).all()
 
     def test_gcn_normalization(self, rng):
-        from sessionsimilaritysearch_tpu.models import DenseGCNConv
+        from sessionsimilaritysearch.models import DenseGCNConv
 
         conv = DenseGCNConv(4)
         x_src = jnp.ones((1, 2, 3))
@@ -484,7 +484,7 @@ class TestTitleTableCache:
         # data-dependent — a fresh seeded generator pins the draw so the
         # outcome cannot depend on how many sessions earlier tests consumed
         # from the shared stream (the conftest order-dependence rule).
-        from sessionsimilaritysearch_tpu.data.synthetic import (
+        from sessionsimilaritysearch.data.synthetic import (
             SyntheticSessionGenerator,
         )
 
@@ -495,12 +495,12 @@ class TestTitleTableCache:
         forward bit-for-bit (to float tolerance) for every session with at
         least one product interaction; the zero-product placeholder node
         (asin 0 carrying 'UNK' text) is the one documented divergence."""
-        from sessionsimilaritysearch_tpu.data import build_graph_batch
-        from sessionsimilaritysearch_tpu.evalharness.harness import (
+        from sessionsimilaritysearch.data import build_graph_batch
+        from sessionsimilaritysearch.evalharness.harness import (
             build_title_table,
             make_cached_encode_fn,
         )
-        from sessionsimilaritysearch_tpu.models import build_graph_encoder
+        from sessionsimilaritysearch.models import build_graph_encoder
 
         data = gen.dataset(12)
         data = [d for d in data
@@ -529,13 +529,13 @@ class TestTitleTableCache:
     def test_keyword_table_matches_uncached(self, tiny_cfg, tokenizer, gen):
         """The fully-cached forward (title_table + query_table) must match
         the uncached forward, with real (non-root) query nodes in play."""
-        from sessionsimilaritysearch_tpu.data import build_graph_batch
-        from sessionsimilaritysearch_tpu.evalharness.harness import (
+        from sessionsimilaritysearch.data import build_graph_batch
+        from sessionsimilaritysearch.evalharness.harness import (
             build_keyword_table,
             build_title_table,
             make_cached_encode_fn,
         )
-        from sessionsimilaritysearch_tpu.models import build_graph_encoder
+        from sessionsimilaritysearch.models import build_graph_encoder
 
         cfg = tiny_cfg.replace(ignore_query=False)
         data = gen.dataset(10)
@@ -570,14 +570,14 @@ class TestTitleTableCache:
     def test_keyword_table_oov_falls_back(self, tiny_cfg, tokenizer, gen):
         """A batch containing a keyword absent from the table must take the
         title-only path (exact output, no crash)."""
-        from sessionsimilaritysearch_tpu.data import build_graph_batch
-        from sessionsimilaritysearch_tpu.evalharness.harness import (
+        from sessionsimilaritysearch.data import build_graph_batch
+        from sessionsimilaritysearch.evalharness.harness import (
             build_keyword_table,
             build_title_table,
             keyword_ids,
             make_cached_encode_fn,
         )
-        from sessionsimilaritysearch_tpu.models import build_graph_encoder
+        from sessionsimilaritysearch.models import build_graph_encoder
 
         cfg = tiny_cfg.replace(ignore_query=False)
         data = [d for d in gen.dataset(20)

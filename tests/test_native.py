@@ -4,10 +4,10 @@ and the numpy oracle. Skipped when the toolchain can't build the .so."""
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu import native
-from sessionsimilaritysearch_tpu.data import levenshtein
-from sessionsimilaritysearch_tpu.ops.topk import oracle_topk_np
-from sessionsimilaritysearch_tpu.tokenizer import HashTokenizer
+from sessionsimilaritysearch import native
+from sessionsimilaritysearch.data import levenshtein
+from sessionsimilaritysearch.ops.topk import oracle_topk_np
+from sessionsimilaritysearch.tokenizer import HashTokenizer
 
 lib_available = native.load() is not None
 pytestmark = pytest.mark.skipif(
@@ -79,7 +79,7 @@ class TestNativeTokenizer:
     def test_non_ascii_case_folding(self):
         """Unicode chars whose lowercase maps into ASCII (U+212A KELVIN
         SIGN -> 'k', U+0130 -> 'i' + combining dot) must tokenize
-        identically to HashTokenizer's str.lower() path (ADVICE r1)."""
+        identically to HashTokenizer's str.lower() path."""
         tok = HashTokenizer(vocab_size=5000)
         texts = [
             "\u212aelvin scale",          # KELVIN SIGN folds to ascii k
@@ -114,7 +114,7 @@ class TestNativeGraphBuilder:
 
     @staticmethod
     def _edge_sessions():
-        from sessionsimilaritysearch_tpu.data.schema import Action
+        from sessionsimilaritysearch.data.schema import Action
 
         def S(kw=None):
             return Action(0.0, "s", kw, None, None, None, None, 0)
@@ -140,15 +140,15 @@ class TestNativeGraphBuilder:
 
     @pytest.mark.parametrize("ignore_query", [False, True])
     def test_matches_python_builder(self, ignore_query):
-        from sessionsimilaritysearch_tpu.config import tiny_test_config
-        from sessionsimilaritysearch_tpu.data import (
+        from sessionsimilaritysearch.config import tiny_test_config
+        from sessionsimilaritysearch.data import (
             SessionGraph,
             SyntheticSessionGenerator,
             batch_graphs,
             build_graph_batch,
             sequence_to_graph,
         )
-        from sessionsimilaritysearch_tpu.tokenizer import get_tokenizer
+        from sessionsimilaritysearch.tokenizer import get_tokenizer
 
         cfg = tiny_test_config()
         tok = get_tokenizer(cfg.vocab_size)
@@ -167,3 +167,41 @@ class TestNativeGraphBuilder:
             assert a.dtype == b.dtype, name
             assert a.shape == b.shape, name
             np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+class TestBuild:
+    SOURCES = ("Makefile", "levenshtein.cpp", "graph_builder.cpp",
+               "tokenize_inl.h")
+
+    def test_builds_without_openmp(self, tmp_path):
+        """A compiler that rejects -fopenmp (a toolchain without libgomp)
+        still builds the library, serial."""
+        import ctypes
+        import os
+        import shutil
+        import subprocess
+
+        if shutil.which("make") is None or shutil.which("g++") is None:
+            pytest.skip("needs make and g++")
+        src = os.path.dirname(native.__file__)
+        for f in self.SOURCES:
+            shutil.copy(os.path.join(src, f), tmp_path)
+        fake = tmp_path / "gxx"
+        fake.write_text('#!/bin/sh\nfor a in "$@"; do\n'
+                        '  [ "$a" = "-fopenmp" ] && exit 1\ndone\n'
+                        'exec g++ "$@"\n')
+        fake.chmod(0o755)
+        proc = subprocess.run(["make", "-C", str(tmp_path), f"CXX={fake}"],
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        assert "-fopenmp" not in proc.stdout
+        lib = ctypes.CDLL(str(tmp_path / "libsss_native.so"))
+        assert hasattr(lib, "build_graph_batch")
+
+    def test_failed_build_warns(self, tmp_path, monkeypatch):
+        (tmp_path / "Makefile").write_text(
+            "libsss_native.so:\n\t@echo no compiler here >&2; exit 1\n")
+        monkeypatch.setattr(native, "_HERE", str(tmp_path))
+        monkeypatch.setattr(native, "_SO", str(tmp_path / "libsss_native.so"))
+        with pytest.warns(RuntimeWarning, match="no compiler here"):
+            assert native._build() is False

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data.graph import batch_graphs, sequence_to_graph
-from sessionsimilaritysearch_tpu.parallel import create_mesh, shard_batch, shard_params
-from sessionsimilaritysearch_tpu.training.pretrain import (
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.data.graph import batch_graphs, sequence_to_graph
+from sessionsimilaritysearch.parallel import create_mesh, shard_batch, shard_params
+from sessionsimilaritysearch.training.pretrain import (
     create_pretrain_state,
     make_encode_fn,
     make_eval_step,
@@ -20,7 +20,7 @@ from sessionsimilaritysearch_tpu.training.pretrain import (
 
 @pytest.fixture(scope="module")
 def setup(tokenizer):
-    from sessionsimilaritysearch_tpu.data.synthetic import (
+    from sessionsimilaritysearch.data.synthetic import (
         SyntheticSessionGenerator,
     )
 
@@ -43,7 +43,7 @@ class TestPretrainStep:
     def test_init_batch_size_invariant(self, setup):
         """Params from init are identical whatever batch the init traces
         with: the campaign inits from a sliced-to-8 sample to avoid
-        multi-GB transient init HBM at flagship dims
+        multi-GB transient init memory at flagship dims
         (examples/flagship_campaign.py, r5) — restart determinism (same
         seed => same params => same cached-text tables) rests on this."""
         cfg, model, state, batch = setup
@@ -112,15 +112,15 @@ class TestPretrainStep:
         weight decay), so gathering its precomputed per-row outputs is
         mathematically the same forward. Gate for the campaign's cached
         mode (examples/flagship_campaign.py --cached-text)."""
-        from sessionsimilaritysearch_tpu.data.synthetic import (
+        from sessionsimilaritysearch.data.synthetic import (
             SyntheticSessionGenerator,
         )
-        from sessionsimilaritysearch_tpu.evalharness.harness import (
+        from sessionsimilaritysearch.evalharness.harness import (
             build_keyword_table,
             build_title_table,
             keyword_ids,
         )
-        from sessionsimilaritysearch_tpu.models.encoder import (
+        from sessionsimilaritysearch.models.encoder import (
             build_pretrain_encoder,
         )
 
@@ -178,8 +178,8 @@ class TestPretrainStep:
         ]
         batch = jax.tree.map(jnp.asarray, batch_graphs(graphs))
         rng = jax.random.PRNGKey(0)
-        from sessionsimilaritysearch_tpu.training.pretrain import PretrainModel
-        from sessionsimilaritysearch_tpu.training.train_state import (
+        from sessionsimilaritysearch.training.pretrain import PretrainModel
+        from sessionsimilaritysearch.training.train_state import (
             adam_with_clip,
             create_train_state,
         )

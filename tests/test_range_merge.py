@@ -10,8 +10,8 @@ stronger guarantee that each query's slice is sorted best-first.
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.index.binary import BinaryIndex
-from sessionsimilaritysearch_tpu.index.dense import DenseIndex, build_index
+from sessionsimilaritysearch.index.binary import BinaryIndex
+from sessionsimilaritysearch.index.dense import DenseIndex, build_index
 
 
 def _unit(x):
@@ -196,10 +196,10 @@ class TestBinaryRangeAndMerge:
 
 class TestShardedRangeSearch:
     def test_matches_bruteforce_across_shards(self, rng):
-        from sessionsimilaritysearch_tpu.index.sharded import (
+        from sessionsimilaritysearch.index.sharded import (
             ShardedDenseIndex,
         )
-        from sessionsimilaritysearch_tpu.parallel import create_mesh
+        from sessionsimilaritysearch.parallel import create_mesh
 
         mesh = create_mesh()
         corpus = rng.standard_normal((256, 16)).astype(np.float32)
@@ -217,17 +217,17 @@ class TestShardedRangeSearch:
 
 class TestTwoStageMergeFrom:
     def test_merge_from_twostage_and_dense(self, rng):
-        from sessionsimilaritysearch_tpu.index.twostage import TwoStageIndex
+        from sessionsimilaritysearch.index.twostage import TwoStageIndex
 
         a = rng.standard_normal((60, 24)).astype(np.float32)
         b = rng.standard_normal((40, 24)).astype(np.float32)
         merged = TwoStageIndex(
-            dim=24, capacity=128, pool=128, n_bits=64, interpret=True
+            dim=24, capacity=128, pool=128, n_bits=64
         )
         merged.add(a)
         # source 1: another two-stage with a DIFFERENT prefilter seed
         src_ts = TwoStageIndex(
-            dim=24, capacity=40, pool=64, n_bits=32, seed=7, interpret=True
+            dim=24, capacity=40, pool=64, n_bits=32, seed=7
         )
         src_ts.add(b)
         assert merged.merge_from(src_ts, batch=16) == 40
@@ -251,7 +251,7 @@ class TestTwoStageMergeFrom:
         with pytest.raises(ValueError, match="center"):
             merged.merge_from(cen)
         bad = TwoStageIndex(
-            dim=16, capacity=8, pool=8, n_bits=32, interpret=True
+            dim=16, capacity=8, pool=8, n_bits=32
         )
         with pytest.raises(ValueError, match="dim/metric"):
             merged.merge_from(bad)

@@ -12,14 +12,14 @@ FAISS maintenance API.
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.index.binary import BinaryIndex
-from sessionsimilaritysearch_tpu.index.dense import DenseIndex
-from sessionsimilaritysearch_tpu.index.sharded import ShardedDenseIndex
-from sessionsimilaritysearch_tpu.index.twostage import (
+from sessionsimilaritysearch.index.binary import BinaryIndex
+from sessionsimilaritysearch.index.dense import DenseIndex
+from sessionsimilaritysearch.index.sharded import ShardedDenseIndex
+from sessionsimilaritysearch.index.twostage import (
     ShardedTwoStageIndex,
     TwoStageIndex,
 )
-from sessionsimilaritysearch_tpu.parallel import create_mesh
+from sessionsimilaritysearch.parallel import create_mesh
 
 
 def l2_normalize_np(x, eps=1e-6):
@@ -93,8 +93,7 @@ class TestBinaryReconstruct:
         signs = np.where(
             rng.random((300, 64)) > 0.5, 1.0, -1.0
         ).astype(np.float32)
-        idx = BinaryIndex(n_bits=64, capacity=512, mode=mode,
-                          use_pallas=False)
+        idx = BinaryIndex(n_bits=64, capacity=512, mode=mode)
         idx.add(signs)
         ids = np.array([0, 7, 31, 32, 33, 255, 299])
         np.testing.assert_array_equal(idx.reconstruct_batch(ids),
@@ -105,8 +104,7 @@ class TestBinaryReconstruct:
         signs = np.where(
             rng.random((100, 32)) > 0.5, 1.0, -1.0
         ).astype(np.float32)
-        idx = BinaryIndex(n_bits=32, capacity=128, mode="packed",
-                          use_pallas=False)
+        idx = BinaryIndex(n_bits=32, capacity=128, mode="packed")
         idx.add(signs)
         idx.remove_ids([0, 50])
         got = idx.reconstruct_batch(np.arange(idx.size))
@@ -175,16 +173,16 @@ class TestEngineReconstruct:
     def test_passthrough(self, tokenizer):
         import jax
 
-        from sessionsimilaritysearch_tpu.config import tiny_test_config
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.config import tiny_test_config
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
-        from sessionsimilaritysearch_tpu.data.synthetic import (
+        from sessionsimilaritysearch.data.synthetic import (
             SyntheticSessionGenerator,
         )
-        from sessionsimilaritysearch_tpu.engine import SessionSearchEngine
-        from sessionsimilaritysearch_tpu.models import (
+        from sessionsimilaritysearch.engine import SessionSearchEngine
+        from sessionsimilaritysearch.models import (
             build_text_session_encoder,
         )
 

@@ -17,10 +17,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from sessionsimilaritysearch_tpu.index import BinaryIndex, DenseIndex
-from sessionsimilaritysearch_tpu.index.dense import compaction_plan
-from sessionsimilaritysearch_tpu.index.twostage import TwoStageIndex
-from sessionsimilaritysearch_tpu.ops.topk import l2_normalize
+from sessionsimilaritysearch.index import BinaryIndex, DenseIndex
+from sessionsimilaritysearch.index.dense import compaction_plan
+from sessionsimilaritysearch.index.twostage import TwoStageIndex
+from sessionsimilaritysearch.ops.topk import l2_normalize
 
 
 def apply_plan(rows: np.ndarray, size: int, ids) -> np.ndarray:
@@ -142,7 +142,7 @@ class TestDenseRemove:
         )
 
     def test_no_retrace_across_remove_add(self, rng):
-        from sessionsimilaritysearch_tpu.ops.topk import chunked_topk
+        from sessionsimilaritysearch.ops.topk import chunked_topk
 
         idx, emb = self._mk(rng)
         q = rng.standard_normal((8, 16)).astype(np.float32)
@@ -290,17 +290,17 @@ class TestTwoStageRemove:
 
 @pytest.fixture(scope="module")
 def mesh():
-    from sessionsimilaritysearch_tpu.parallel import create_mesh
+    from sessionsimilaritysearch.parallel import create_mesh
 
     return create_mesh()
 
 
 class TestShardedRemove:
     def test_global_ids_stable(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.index.sharded import (
+        from sessionsimilaritysearch.index.sharded import (
             ShardedDenseIndex,
         )
-        from sessionsimilaritysearch_tpu.ops.topk import oracle_topk_np
+        from sessionsimilaritysearch.ops.topk import oracle_topk_np
 
         corpus = rng.standard_normal((160, 16)).astype(np.float32)
         idx = ShardedDenseIndex(dim=16, capacity=256, mesh=mesh,
@@ -323,7 +323,7 @@ class TestShardedRemove:
         assert not (set(I_all.ravel().tolist()) & set(gone))
 
     def test_add_after_remove_continues_ids(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.index.sharded import (
+        from sessionsimilaritysearch.index.sharded import (
             ShardedDenseIndex,
         )
 
@@ -340,7 +340,7 @@ class TestShardedRemove:
         np.testing.assert_array_equal(I[:, 0], [32, 33, 34])
 
     def test_missing_id_raises(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.index.sharded import (
+        from sessionsimilaritysearch.index.sharded import (
             ShardedDenseIndex,
         )
 
@@ -352,7 +352,7 @@ class TestShardedRemove:
             idx.remove_ids([5])
 
     def test_int8x8_sharded_remove(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.index.sharded import (
+        from sessionsimilaritysearch.index.sharded import (
             ShardedDenseIndex,
         )
 
@@ -367,7 +367,7 @@ class TestShardedRemove:
         np.testing.assert_array_equal(I[:, 0], [2, 3, 4])
 
     def test_save_load_roundtrip_after_remove(self, mesh, rng, tmp_path):
-        from sessionsimilaritysearch_tpu.index.sharded import (
+        from sessionsimilaritysearch.index.sharded import (
             ShardedDenseIndex,
         )
 
@@ -391,7 +391,7 @@ class TestShardedRemove:
         assert 1 not in I3.ravel().tolist()
 
     def test_twostage_sharded_remove(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.index.twostage import (
+        from sessionsimilaritysearch.index.twostage import (
             ShardedTwoStageIndex,
         )
 
@@ -414,12 +414,12 @@ class TestEngineRemove:
     def _engine(self, gen, tokenizer, mesh=None, capacity=128):
         import jax
 
-        from sessionsimilaritysearch_tpu.config import tiny_test_config
-        from sessionsimilaritysearch_tpu.engine import SessionSearchEngine
-        from sessionsimilaritysearch_tpu.models import (
+        from sessionsimilaritysearch.config import tiny_test_config
+        from sessionsimilaritysearch.engine import SessionSearchEngine
+        from sessionsimilaritysearch.models import (
             build_text_session_encoder,
         )
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )

@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data.graph import (
+from sessionsimilaritysearch.config import tiny_test_config
+from sessionsimilaritysearch.data.graph import (
     batch_graphs,
     sequence_to_graph,
     truncate_to_subsession,
 )
-from sessionsimilaritysearch_tpu.training.session_trainers import (
+from sessionsimilaritysearch.training.session_trainers import (
     create_joint_state,
     create_session_state,
     make_joint_train_step,
@@ -80,7 +80,7 @@ class TestSessionTrainers:
         """encoder_kind='flagship' joint towers expose the production
         GraphLevelEncoder param subtree per side — the extraction recipe
         examples/knn_pairings.py serves from."""
-        from sessionsimilaritysearch_tpu.models.encoder import (
+        from sessionsimilaritysearch.models.encoder import (
             build_graph_encoder,
         )
 
@@ -110,10 +110,10 @@ class TestSessionTrainers:
 
 class TestQueryLossStyles:
     def test_mlm_electra_style(self, batches):
-        from sessionsimilaritysearch_tpu.training.session_trainers import (
+        from sessionsimilaritysearch.training.session_trainers import (
             SessionEmbeddingModel,
         )
-        from sessionsimilaritysearch_tpu.training.train_state import (
+        from sessionsimilaritysearch.training.train_state import (
             adam_with_clip,
             create_train_state,
         )
@@ -135,7 +135,7 @@ class TestQueryLossStyles:
 
 class TestAugmentations:
     def test_random_exchange_order(self, gen):
-        from sessionsimilaritysearch_tpu.data.augment import (
+        from sessionsimilaritysearch.data.augment import (
             random_drop_action,
             random_exchange_order,
             random_mask_product,
@@ -161,11 +161,11 @@ class TestFlagshipEncoderKind:
     catalog title cache applies (examples/flagship_serving.py)."""
 
     def test_train_encode_and_title_cache(self, batches, gen, tokenizer):
-        from sessionsimilaritysearch_tpu.evalharness.harness import (
+        from sessionsimilaritysearch.evalharness.harness import (
             build_title_table,
             make_cached_encode_fn,
         )
-        from sessionsimilaritysearch_tpu.models.encoder import (
+        from sessionsimilaritysearch.models.encoder import (
             build_graph_encoder,
         )
 

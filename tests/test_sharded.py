@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.index.sharded import ShardedDenseIndex
-from sessionsimilaritysearch_tpu.ops.topk import oracle_topk_np, recall_at_k
-from sessionsimilaritysearch_tpu.parallel import create_mesh
-from sessionsimilaritysearch_tpu.parallel.collectives import (
+from sessionsimilaritysearch.index.sharded import ShardedDenseIndex
+from sessionsimilaritysearch.ops.topk import oracle_topk_np, recall_at_k
+from sessionsimilaritysearch.parallel import create_mesh
+from sessionsimilaritysearch.parallel.collectives import (
     shard_corpus,
     sharded_topk,
 )
@@ -31,7 +31,7 @@ class TestShardedTopk:
         assert recall_at_k(np.asarray(ids), oidx) > 0.9
 
     def test_single_vs_sharded_identical(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.ops.topk import chunked_topk
+        from sessionsimilaritysearch.ops.topk import chunked_topk
 
         corpus = rng.standard_normal((512, 16)).astype(np.float32)
         queries = rng.standard_normal((5, 16)).astype(np.float32)
@@ -92,21 +92,21 @@ class TestCompositeMesh:
         logit matmul (SURVEY.md §7 hard part (b))."""
         import jax.numpy as jnp
 
-        from sessionsimilaritysearch_tpu.config import tiny_test_config
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.config import tiny_test_config
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
-        from sessionsimilaritysearch_tpu.data.synthetic import (
+        from sessionsimilaritysearch.data.synthetic import (
             SyntheticSessionGenerator,
         )
-        from sessionsimilaritysearch_tpu.parallel import (
+        from sessionsimilaritysearch.parallel import (
             create_mesh,
             shard_params,
         )
-        from sessionsimilaritysearch_tpu.parallel.mesh import batch_sharding
-        from sessionsimilaritysearch_tpu.tokenizer import get_tokenizer
-        from sessionsimilaritysearch_tpu.training.pretrain import (
+        from sessionsimilaritysearch.parallel.mesh import batch_sharding
+        from sessionsimilaritysearch.tokenizer import get_tokenizer
+        from sessionsimilaritysearch.training.pretrain import (
             create_pretrain_state,
             make_train_step,
         )
@@ -160,7 +160,7 @@ class TestShardedPersistence:
 class TestShardCountMigration:
     def test_load_on_different_shard_count(self, mesh, rng, tmp_path):
         """An index saved on a 4-shard mesh restripes correctly on 8."""
-        from sessionsimilaritysearch_tpu.parallel import create_mesh
+        from sessionsimilaritysearch.parallel import create_mesh
         import jax
 
         mesh4 = create_mesh(shape=(4,), devices=jax.devices()[:4])
@@ -182,7 +182,7 @@ class TestTenMillionRowDryrun:
     """BASELINE config 5 semantics (10M sessions sharded over 8 chips) at
     reduced width: the full 10M-row machinery -- striped insert, per-shard
     fill tracking, cross-shard merge, global-id recovery -- runs on the
-    8-device mesh (VERDICT r1 item 5). Width is 16 (not 1600) to keep CI
+    8-device mesh. Width is 16 (not 1600) to keep CI
     memory sane; the per-chip memory math for the real config is asserted
     symbolically below."""
 
@@ -217,10 +217,10 @@ class TestTenMillionRowDryrun:
         np.testing.assert_allclose(D[:, 0], 1.0, atol=1e-5)
 
     def test_flagship_memory_math(self, mesh):
-        # BASELINE config 5: 10M x 1600d bf16 over 8 chips
+        # a 10M x 1600d bf16 corpus over 8 devices
         n, d, ndev, bytes_bf16 = 10_000_000, 1600, 8, 2
         per_chip = n * d * bytes_bf16 / ndev
-        assert per_chip == 4.0e9  # 4 GB/chip of 16 GB HBM (v5e)
+        assert per_chip == 4.0e9  # 4 GB per device
         # query-side transient: 1024-query bf16 score chunk per shard
         chunk = 262144
         score_buf = 1024 * chunk * 2 / 1e9
@@ -230,11 +230,11 @@ class TestTenMillionRowDryrun:
 class TestShardedQuantized:
     """int8 / int8x8 sharded modes (the single-chip DenseIndex quantize
     modes, striped): capacity doubles per chip and the int8x8 search runs
-    each shard's scan on the MXU int path (docs/RESULTS.md)."""
+    each shard's scan as an int8 x int8 -> int32 matmul."""
 
     @pytest.mark.parametrize("quantize", ["int8", "int8x8"])
     def test_quantized_matches_oracle(self, mesh, rng, quantize):
-        from sessionsimilaritysearch_tpu.ops.topk import value_recall_at_k
+        from sessionsimilaritysearch.ops.topk import value_recall_at_k
 
         corpus = rng.standard_normal((1024, 32)).astype(np.float32)
         queries = rng.standard_normal((16, 32)).astype(np.float32)
@@ -268,7 +268,7 @@ class TestShardedQuantized:
 
     def test_quantized_save_load_restripe(self, mesh, rng, tmp_path):
         """Scales restripe with their rows across a shard-count change."""
-        from sessionsimilaritysearch_tpu.parallel import create_mesh
+        from sessionsimilaritysearch.parallel import create_mesh
 
         mesh4 = create_mesh(shape=(4,), devices=jax.devices()[:4])
         idx4 = ShardedDenseIndex(dim=8, capacity=64, mesh=mesh4,
@@ -303,8 +303,8 @@ class TestShardedApprox:
 
 
 class TestShardedSnapshotFidelity:
-    """ADVICE r2: load(quantize=...) used to raise duplicate-kwarg or build
-    a broken int8 index; VERDICT r2 weak 5: serving config must persist."""
+    """load(quantize=...) used to raise duplicate-kwarg or build
+    a broken int8 index; serving config must persist."""
 
     def test_config_roundtrip(self, mesh, rng, tmp_path):
         idx = ShardedDenseIndex(dim=16, capacity=128, mesh=mesh,
@@ -349,13 +349,12 @@ class TestShardedSnapshotFidelity:
 
 class TestCollectiveCompileCache:
     """The sharded collectives must NOT re-trace per call: a fresh
-    shard_map over a fresh closure re-lowers every invocation (~20 s/call
-    measured at 1M x 1600 on the chip, 300x the single-chip scan —
-    maintenance_bench r4). Serving calls reuse one cached jitted program
-    per static configuration."""
+    shard_map over a fresh closure re-lowers every invocation, which at
+    serving shapes costs far more than the scan itself. Serving calls
+    reuse one cached jitted program per static configuration."""
 
     def test_repeat_calls_reuse_cached_fn(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.parallel import collectives
+        from sessionsimilaritysearch.parallel import collectives
 
         corpus = rng.standard_normal((512, 16)).astype(np.float32)
         queries = rng.standard_normal((8, 16)).astype(np.float32)
@@ -374,7 +373,7 @@ class TestCollectiveCompileCache:
         np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
 
     def test_index_search_cache_stable_across_maintenance(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.parallel import collectives
+        from sessionsimilaritysearch.parallel import collectives
 
         ix = ShardedDenseIndex(dim=16, capacity=256, mesh=mesh,
                                chunk_size=32)

@@ -1,5 +1,5 @@
 """ShardedBinaryIndex: pure Hamming ranking at scale-out, on the 8-device
-virtual CPU mesh (VERDICT r3 task 3).
+virtual CPU mesh.
 
 Reference anchor: faiss.IndexBinaryFlat's serve path
 (fine_tune_ours.py:839-879) had no multi-chip analogue before this —
@@ -12,9 +12,9 @@ is exact — the repo's tie-aware convention)."""
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.index import BinaryIndex, ShardedBinaryIndex
-from sessionsimilaritysearch_tpu.ops.hamming import oracle_hamming_np
-from sessionsimilaritysearch_tpu.parallel import create_mesh
+from sessionsimilaritysearch.index import BinaryIndex, ShardedBinaryIndex
+from sessionsimilaritysearch.ops.hamming import oracle_hamming_np
+from sessionsimilaritysearch.parallel import create_mesh
 
 
 @pytest.fixture(scope="module")

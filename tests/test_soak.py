@@ -1,4 +1,4 @@
-"""Mixed-workload serving soak, tiny (VERDICT r3 item 5).
+"""Mixed-workload serving soak, tiny.
 
 Drives the real examples/serving_soak.py loop — ingest / search /
 remove_sessions / expire / snapshot+restore interleaved — and asserts the
@@ -75,7 +75,7 @@ class TestServingSoak:
 @pytest.fixture(scope="module")
 def sharded_soak_report(tmp_path_factory):
     """The same mixed verb load against a ShardedDenseIndex engine over
-    the 8-device virtual mesh (VERDICT r4 task 8): stable gids, tombstoned
+    the 8-device virtual mesh: stable gids, tombstoned
     metadata, collective search, snapshot under load."""
     args = types.SimpleNamespace(
         rows=512, asin_num=None, fill_chunk=128, batches=6, qbatch=32,

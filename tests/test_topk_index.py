@@ -4,8 +4,8 @@ dense/binary index semantics, streaming inserts, persistence."""
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu.index import BinaryIndex, DenseIndex, build_index
-from sessionsimilaritysearch_tpu.ops import (
+from sessionsimilaritysearch.index import BinaryIndex, DenseIndex, build_index
+from sessionsimilaritysearch.ops import (
     chunked_topk,
     exact_topk,
     hamming_topk,
@@ -15,8 +15,8 @@ from sessionsimilaritysearch_tpu.ops import (
     pack_bits_np,
     sign_topk,
 )
-from sessionsimilaritysearch_tpu.ops.hamming import oracle_hamming_np, pack_bits
-from sessionsimilaritysearch_tpu.ops.topk import recall_at_k
+from sessionsimilaritysearch.ops.hamming import oracle_hamming_np, pack_bits
+from sessionsimilaritysearch.ops.topk import recall_at_k, rerank_topk
 
 import jax.numpy as jnp
 
@@ -152,10 +152,10 @@ class TestDenseIndex:
             index.add(rng.standard_normal((11, 8)).astype(np.float32))
 
     def test_int8x8_search_quality(self, data):
-        """quantize='int8x8' (int8 x int8 -> int32 MXU scan): retrieved
+        """quantize='int8x8' (int8 x int8 -> int32 matmul scan): retrieved
         rows' TRUE scores reach the oracle's within the combined two-sided
         quantization tolerance."""
-        from sessionsimilaritysearch_tpu.ops.topk import value_recall_at_k
+        from sessionsimilaritysearch.ops.topk import value_recall_at_k
 
         q, c = data
         index = build_index(c, metric="cos", quantize="int8x8")
@@ -199,7 +199,7 @@ class TestDenseIndex:
 class TestCenteredCosine:
     """``DenseIndex(center=...)`` — centered-cosine serving, the measured
     fix for cone-collapsed encoder embeddings whose raw cosine saturates
-    (docs/RESULTS.md, 1M flagship artifact: 7x type@10)."""
+    (1M flagship artifact)."""
 
     def _cone(self, rng, n=400, d=48, n_types=4, proto_s=0.05, noise_s=0.01):
         """Collapsed-cone corpus: dominant shared direction, small
@@ -284,7 +284,7 @@ class TestCenteredCosine:
         np.testing.assert_array_equal(np.asarray(idx3._center), before)
 
     def test_quantize_composes(self, rng):
-        from sessionsimilaritysearch_tpu.ops.topk import value_recall_at_k
+        from sessionsimilaritysearch.ops.topk import value_recall_at_k
 
         x, _ = self._cone(rng)
         q = x[:9]
@@ -355,7 +355,7 @@ class TestScoreDtype:
         assert recall_at_k(np.asarray(i16), np.asarray(i32)) > 0.85
 
     def test_value_recall_credits_ties_and_bf16(self, data, rng):
-        from sessionsimilaritysearch_tpu.ops.topk import value_recall_at_k
+        from sessionsimilaritysearch.ops.topk import value_recall_at_k
 
         # exact duplicate rows: index-set recall cannot distinguish which
         # copy the engine returns, value recall credits either
@@ -384,7 +384,7 @@ class TestScoreDtype:
 class TestBinaryStreaming:
     def test_streaming_insert(self, rng):
         """Interleaved add/search; appends are O(batch) donated updates
-        (VERDICT r1 item 10), results identical to one-shot build."""
+        results identical to one-shot build."""
         c = rng.choice([-1.0, 1.0], size=(96, 64)).astype(np.float32)
         q = rng.choice([-1.0, 1.0], size=(4, 64)).astype(np.float32)
         for mode in ("packed", "sign"):
@@ -408,7 +408,7 @@ class TestBinaryStreaming:
 
     def test_missing_slots_are_int32_max(self, rng):
         """k > corpus: missing slots read (INT32_MAX, -1) in BOTH modes --
-        pins the sign-mode inf->int conversion fix (ADVICE r1)."""
+        pins the sign-mode inf->int conversion fix."""
         c = rng.choice([-1.0, 1.0], size=(3, 64)).astype(np.float32)
         for mode in ("packed", "sign"):
             idx = BinaryIndex(n_bits=64, capacity=8, mode=mode)
@@ -421,11 +421,11 @@ class TestBinaryStreaming:
 
 class TestValueRecallAdversarial:
     """The bench's bf16 guard must catch genuinely wrong retrievals
-    (VERDICT r1 item 9): value_recall_at_k is only a valid headline metric
+    value_recall_at_k is only a valid headline metric
     if it penalizes dropped true neighbors, not just forgives tie churn."""
 
     def test_dropped_true_top1_reads_below_one(self, rng):
-        from sessionsimilaritysearch_tpu.ops.topk import (
+        from sessionsimilaritysearch.ops.topk import (
             oracle_topk_np,
             value_recall_at_k,
         )
@@ -441,7 +441,7 @@ class TestValueRecallAdversarial:
         assert abs(vr - 0.8) < 1e-9
 
     def test_garbage_retrieval_reads_near_zero(self, rng):
-        from sessionsimilaritysearch_tpu.ops.topk import value_recall_at_k
+        from sessionsimilaritysearch.ops.topk import value_recall_at_k
 
         corpus = rng.standard_normal((64, 16)).astype(np.float32)
         q = rng.standard_normal((4, 16)).astype(np.float32)
@@ -449,7 +449,7 @@ class TestValueRecallAdversarial:
         assert value_recall_at_k(worst, q, corpus, 5) == 0.0
 
     def test_tie_churn_reads_one_while_set_recall_does_not(self, rng):
-        from sessionsimilaritysearch_tpu.ops.topk import (
+        from sessionsimilaritysearch.ops.topk import (
             oracle_topk_np,
             recall_at_k,
             value_recall_at_k,
@@ -468,11 +468,11 @@ class TestValueRecallAdversarial:
 
 
 class TestInt8Quantized:
-    """DenseIndex(quantize='int8'): 4x corpus HBM reduction with a
-    value-recall guard (VERDICT r1 item 5)."""
+    """DenseIndex(quantize='int8'): 4x corpus memory reduction with a
+    value-recall guard."""
 
     def test_self_retrieval_and_recall_guard(self, rng):
-        from sessionsimilaritysearch_tpu.ops.topk import value_recall_at_k
+        from sessionsimilaritysearch.ops.topk import value_recall_at_k
 
         corpus = rng.standard_normal((2000, 128)).astype(np.float32)
         idx = DenseIndex(dim=128, capacity=2048, metric="cos",
@@ -526,7 +526,7 @@ class TestSimhash:
     """Training-free cosine LSH codes (ops.hamming.simhash_codes)."""
 
     def test_shared_projection_and_determinism(self, rng):
-        from sessionsimilaritysearch_tpu.ops.hamming import simhash_codes
+        from sessionsimilaritysearch.ops.hamming import simhash_codes
 
         emb = rng.standard_normal((20, 32)).astype(np.float32)
         a = simhash_codes(emb, 64, seed=3)
@@ -542,7 +542,7 @@ class TestSimhash:
     def test_hamming_ranking_tracks_cosine(self, rng):
         """On well-separated clusters, 256-bit simhash Hamming top-1
         recovers the cosine top-1 (the angular-estimate guarantee)."""
-        from sessionsimilaritysearch_tpu.ops.hamming import simhash_codes
+        from sessionsimilaritysearch.ops.hamming import simhash_codes
 
         centers = rng.standard_normal((8, 48)).astype(np.float32) * 4
         corpus = np.concatenate(
@@ -561,11 +561,11 @@ class TestSimhash:
 
 class TestSignApprox:
     """sign_topk(mode='approx') wiring (lax.approx_max_k selection; on CPU
-    approx_max_k reduces to exact top-k, so this pins plumbing + ranking;
-    the TPU speed/recall numbers live in docs/RESULTS.md)."""
+    approx_max_k reduces to exact top-k, so this pins plumbing +
+    ranking)."""
 
     def test_binary_index_approx_selection(self, rng):
-        from sessionsimilaritysearch_tpu.index.binary import BinaryIndex
+        from sessionsimilaritysearch.index.binary import BinaryIndex
 
         signs = np.where(rng.standard_normal((512, 64)) > 0, 1.0, -1.0)
         q = signs[:9]
@@ -582,7 +582,7 @@ class TestSignApprox:
         np.testing.assert_array_equal(np.sort(Da, 1), np.sort(De, 1))
 
     def test_approx_requires_sign_mode(self):
-        from sessionsimilaritysearch_tpu.index.binary import BinaryIndex
+        from sessionsimilaritysearch.index.binary import BinaryIndex
 
         with pytest.raises(AssertionError):
             BinaryIndex(n_bits=64, capacity=128, mode="packed",
@@ -594,8 +594,8 @@ class TestFastestDenseMode:
         """The README's fastest dense mode: quantize='int8x8' +
         mode='approx' (on CPU approx_max_k reduces to exact selection, so
         this pins the combination's plumbing and quality)."""
-        from sessionsimilaritysearch_tpu.index.dense import DenseIndex
-        from sessionsimilaritysearch_tpu.ops.topk import value_recall_at_k
+        from sessionsimilaritysearch.index.dense import DenseIndex
+        from sessionsimilaritysearch.ops.topk import value_recall_at_k
 
         q, c = data
         index = DenseIndex(dim=64, capacity=1000, metric="cos",
@@ -608,7 +608,7 @@ class TestFastestDenseMode:
 
 
 class TestNoRetraceOnInsert:
-    """VERDICT r2 item 3: streaming inserts must never recompile the
+    """Streaming inserts must never recompile the
     search. The buffer is allocated at capacity once and searches scan it
     with a dynamic valid_count mask, so the traced shapes are
     insert-invariant; these tests pin the jit cache growth to the single
@@ -631,10 +631,9 @@ class TestNoRetraceOnInsert:
         np.testing.assert_array_equal(np.sort(d, 1), np.sort(ov, 1))
 
     def test_binary_packed_xla_no_retrace(self, rng):
-        from sessionsimilaritysearch_tpu.ops.hamming import packed_t_topk
+        from sessionsimilaritysearch.ops.hamming import packed_t_topk
 
-        idx = BinaryIndex(n_bits=64, capacity=4096, mode="packed",
-                          use_pallas=False)
+        idx = BinaryIndex(n_bits=64, capacity=4096, mode="packed")
         codes = np.sign(rng.standard_normal((1200, 64))).astype(np.float32)
         q = codes[:8]
         idx.add(codes[:100])
@@ -645,24 +644,6 @@ class TestNoRetraceOnInsert:
             idx.add(codes[lo:lo + 100])
             d, i = idx.search(q, 5)
         assert packed_t_topk._cache_size() == before
-        ov, _ = oracle_hamming_np(q, codes, 5)
-        np.testing.assert_array_equal(np.sort(d, 1), np.sort(ov, 1))
-
-    def test_binary_packed_pallas_no_retrace(self, rng):
-        from sessionsimilaritysearch_tpu.ops import pallas_mips
-
-        idx = BinaryIndex(n_bits=64, capacity=4096, mode="packed",
-                          use_pallas=True, interpret=True)
-        codes = np.sign(rng.standard_normal((1200, 64))).astype(np.float32)
-        q = codes[:8]
-        idx.add(codes[:100])
-        idx.search(q, 5)
-        before = pallas_mips.pallas_packed_topk._cache_size()
-        assert before > 0  # the kernel really is the path traced
-        for lo in range(100, 1200, 100):
-            idx.add(codes[lo:lo + 100])
-            d, i = idx.search(q, 5)
-        assert pallas_mips.pallas_packed_topk._cache_size() == before
         ov, _ = oracle_hamming_np(q, codes, 5)
         np.testing.assert_array_equal(np.sort(d, 1), np.sort(ov, 1))
 
@@ -680,7 +661,7 @@ class TestNoRetraceOnInsert:
 
 
 class TestSnapshotFidelity:
-    """VERDICT r2 weak 5 / next-round item 8: snapshots persist the full
+    """Snapshots persist the full
     serving configuration, so a tuned engine restores tuned."""
 
     def test_dense_config_roundtrip(self, tmp_path, rng):
@@ -765,7 +746,7 @@ class TestSnapshotFidelity:
 
 
 class TestExactCert:
-    """Exact-with-certificate selection (VERDICT r2 item 6): approx bucket
+    """Exact-with-certificate selection: approx bucket
     selection, bucket-max certificate, lax.cond fallback."""
 
     def test_matches_oracle(self, rng):
@@ -795,7 +776,7 @@ class TestExactCert:
         return the WORST buckets -- the certificate must catch it and the
         fallback must still return the exact answer."""
         import jax as _jax
-        from sessionsimilaritysearch_tpu.ops import topk as topk_mod
+        from sessionsimilaritysearch.ops import topk as topk_mod
 
         c = rng.standard_normal((4096, 16)).astype(np.float32)
         q = rng.standard_normal((8, 16)).astype(np.float32)
@@ -836,14 +817,14 @@ class TestExactCert:
 
 class TestPCAProjection:
     """Low-rank serving projection (round 3): on a low-effective-rank
-    corpus (the measured regime for trained encoders, docs/RESULTS.md),
+    corpus (the measured regime for trained encoders),
     PCA to a width above the effective rank preserves exact retrieval."""
 
     def test_low_rank_corpus_exact_retrieval(self, rng):
-        from sessionsimilaritysearch_tpu.ops.projection import (
+        from sessionsimilaritysearch.ops.projection import (
             PCAProjector, fit_pca,
         )
-        from sessionsimilaritysearch_tpu.ops.topk import value_recall_at_k
+        from sessionsimilaritysearch.ops.topk import value_recall_at_k
 
         # rank-12 cloud embedded in 256 dims + small isotropic noise
         basis = rng.standard_normal((12, 256))
@@ -865,7 +846,7 @@ class TestPCAProjection:
         np.testing.assert_array_equal(loaded(z[:5]), proj(z[:5]))
 
     def test_full_rank_corpus_flags_low_explained(self, rng):
-        from sessionsimilaritysearch_tpu.ops.projection import fit_pca
+        from sessionsimilaritysearch.ops.projection import fit_pca
 
         z = rng.standard_normal((2000, 256)).astype(np.float32)
         proj = fit_pca(z, 32)
@@ -877,7 +858,7 @@ class TestDeviceResidentHelpers:
     never crosses the host link): parity with their host twins."""
 
     def test_pack_bits_t_device_matches_host(self, rng):
-        from sessionsimilaritysearch_tpu.ops.hamming import (
+        from sessionsimilaritysearch.ops.hamming import (
             TBLOCK,
             pack_bits_t,
             pack_bits_t_np,
@@ -891,7 +872,7 @@ class TestDeviceResidentHelpers:
         )
 
     def test_simhash_device_matches_host(self, rng):
-        from sessionsimilaritysearch_tpu.ops.hamming import simhash_codes
+        from sessionsimilaritysearch.ops.hamming import simhash_codes
 
         emb = rng.standard_normal((256, 64)).astype(np.float32)
         h = simhash_codes(emb, 48, seed=5)
@@ -900,7 +881,7 @@ class TestDeviceResidentHelpers:
         np.testing.assert_array_equal(h, np.asarray(d))
 
     def test_projector_device_matches_host(self, rng):
-        from sessionsimilaritysearch_tpu.ops.projection import fit_pca
+        from sessionsimilaritysearch.ops.projection import fit_pca
 
         c = rng.standard_normal((512, 32)).astype(np.float32)
         proj = fit_pca(c, 8)
@@ -911,7 +892,7 @@ class TestDeviceResidentHelpers:
     def test_fitters_sample_device_input(self, rng):
         """fit_pca/fit_itq over a device corpus gather only the sample:
         the fit equals the host fit on the same data."""
-        from sessionsimilaritysearch_tpu.ops.projection import fit_itq, fit_pca
+        from sessionsimilaritysearch.ops.projection import fit_itq, fit_pca
 
         big = rng.standard_normal((70_000, 24)).astype(np.float32)
         p1, p2 = fit_pca(big, 6), fit_pca(jnp.asarray(big), 6)
@@ -922,7 +903,7 @@ class TestDeviceResidentHelpers:
         np.testing.assert_allclose(i1.components, i2.components, atol=1e-3)
 
     def test_value_recall_from_scores_matches_full(self, rng):
-        from sessionsimilaritysearch_tpu.ops.topk import (
+        from sessionsimilaritysearch.ops.topk import (
             value_recall_at_k,
             value_recall_from_scores,
         )
@@ -941,3 +922,54 @@ class TestDeviceResidentHelpers:
             full = value_recall_at_k(idx, q, c, 10, rel_tol=tol)
             part = value_recall_from_scores(got, oracle, tol * scale)
             assert abs(full - part) < 1e-12
+
+
+def _dot_precisions(fn, *args):
+    """The ``precision`` of every dot_general in ``fn``'s jaxpr, nested
+    jaxprs (scan bodies, inner jits) included."""
+    import jax
+
+    found = []
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                found.append(eqn.params["precision"])
+            for v in eqn.params.values():
+                for sub in v if isinstance(v, (list, tuple)) else [v]:
+                    if hasattr(sub, "jaxpr"):  # ClosedJaxpr
+                        walk(sub.jaxpr)
+                    elif hasattr(sub, "eqns"):
+                        walk(sub)
+
+    walk(jax.make_jaxpr(fn)(*args).jaxpr)
+    return found
+
+
+class TestScorePrecision:
+    """float32 scoring asks for HIGHEST precision (a GPU otherwise runs a
+    float32 matmul in TF32); bf16 and int8 scans keep the default."""
+
+    HIGHEST = "Precision.HIGHEST"
+
+    @pytest.mark.parametrize("metric", ["ip", "l2"])
+    def test_f32_chunked_topk_is_highest(self, data, metric):
+        q, c = jnp.asarray(data[0]), jnp.asarray(data[1])
+        precs = _dot_precisions(
+            lambda a, b: chunked_topk(a, b, 5, chunk_size=256,
+                                      metric=metric), q, c)
+        assert precs and all(self.HIGHEST in str(p) for p in precs)
+
+    def test_f32_rerank_is_highest(self, data):
+        q, c = jnp.asarray(data[0]), jnp.asarray(data[1])
+        cand = jnp.tile(jnp.arange(20, dtype=jnp.int32), (q.shape[0], 1))
+        precs = _dot_precisions(
+            lambda a, b: rerank_topk(a, b, cand, 5), q, c)
+        assert precs and all(self.HIGHEST in str(p) for p in precs)
+
+    def test_bf16_scan_keeps_default_precision(self, data):
+        q = jnp.asarray(data[0], jnp.bfloat16)
+        c = jnp.asarray(data[1], jnp.bfloat16)
+        precs = _dot_precisions(
+            lambda a, b: chunked_topk(a, b, 5, chunk_size=256), q, c)
+        assert precs and not any(self.HIGHEST in str(p) for p in precs)

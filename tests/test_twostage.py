@@ -6,15 +6,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from sessionsimilaritysearch_tpu.index import DenseIndex, TwoStageIndex
-from sessionsimilaritysearch_tpu.index.dense import _quantize_rows_int8
-from sessionsimilaritysearch_tpu.ops.hamming import sign_topk
-from sessionsimilaritysearch_tpu.ops.projection import (
+from sessionsimilaritysearch.index import DenseIndex, TwoStageIndex
+from sessionsimilaritysearch.index.dense import _quantize_rows_int8
+from sessionsimilaritysearch.ops.hamming import sign_topk
+from sessionsimilaritysearch.ops.projection import (
     fit_itq,
     fit_pca,
     itq_codes,
 )
-from sessionsimilaritysearch_tpu.ops.topk import (
+from sessionsimilaritysearch.ops.topk import (
     chunked_topk,
     l2_normalize,
     oracle_topk_np,
@@ -33,7 +33,7 @@ def gen(tiny_cfg):
     # generator pins the draw so outcomes cannot depend on how many
     # sessions earlier tests consumed from the shared stream (the conftest
     # order-dependence rule; same fix as test_models.TestTitleTableCache).
-    from sessionsimilaritysearch_tpu.data.synthetic import (
+    from sessionsimilaritysearch.data.synthetic import (
         SyntheticSessionGenerator,
     )
 
@@ -142,7 +142,7 @@ class TestITQ:
     def cone(self):
         """Cone-collapsed corpus: strong shared mean + rank-8 residual —
         the measured geometry of trained session encoders (participation
-        ratio 9-14 at 1600-d nominal, docs/RESULTS.md)."""
+        ratio 9-14 at 1600-d nominal)."""
         r = np.random.default_rng(11)
         basis = np.linalg.qr(r.standard_normal((64, 9)))[0]
         mean_dir, U = basis[:, 0], basis[:, 1:]
@@ -173,9 +173,9 @@ class TestITQ:
     def test_itq_beats_simhash_on_cone(self, cone):
         """THE reason this prefilter exists: on cone-collapsed embeddings
         random SimHash bits all point at the shared mean and the stage-1
-        pool carries ~no signal (the measured 1M null, docs/RESULTS.md r3);
+        pool carries ~no signal (the measured 1M null);
         centered learned codes recover the neighborhood structure."""
-        from sessionsimilaritysearch_tpu.ops.hamming import (
+        from sessionsimilaritysearch.ops.hamming import (
             oracle_hamming_np,
             simhash_codes,
         )
@@ -196,7 +196,7 @@ class TestITQ:
         sim_cont = pool_containment(
             simhash_codes(q, 64), simhash_codes(c, 64)
         )
-        # measured 0.90 vs 0.68 (TPU) at these shapes; thresholds leave
+        # measured 0.90 vs 0.68 at these shapes; thresholds leave
         # room for pool-boundary tie churn across platforms
         assert itq_cont >= 0.82, itq_cont
         assert itq_cont > sim_cont + 0.12, (itq_cont, sim_cont)
@@ -295,7 +295,7 @@ class TestTwoStageIndex:
     def test_build_twostage_index(self, data, prefilter):
         """One-shot builder fits the PCA/ITQ projector itself and indexes
         the whole corpus; full-pool search matches the exact ranking."""
-        from sessionsimilaritysearch_tpu.index import build_twostage_index
+        from sessionsimilaritysearch.index import build_twostage_index
 
         q, c = data
         idx = build_twostage_index(c, prefilter=prefilter, pca_dim=32,
@@ -330,10 +330,10 @@ class TestTwoStageIndex:
 
 
 class TestPackedStage1:
-    """stage1='packed': the fused unpack->MXU scan over transposed-packed
+    """stage1='packed': the unpack+matmul scan over transposed-packed
     codes (BinaryIndex packed semantics; XLA unpack+matmul twin on CPU)
     replaces the sign matmul for the 'binary'/'itq' prefilters — 1 bit/bit
-    of stage-1 HBM and an EXACT Hamming top-pool."""
+    of stage-1 memory and an EXACT Hamming top-pool."""
 
     @pytest.mark.parametrize("prefilter", ["binary", "itq"])
     def test_full_pool_recovers_exact(self, data, prefilter):
@@ -367,7 +367,7 @@ class TestPackedStage1:
         assert vr_pk >= vr_mm - 1e-9
 
     def test_streaming_insert_no_retrace(self, rng):
-        from sessionsimilaritysearch_tpu.ops.hamming import hamming_topk
+        from sessionsimilaritysearch.ops.hamming import hamming_topk
 
         c = rng.standard_normal((64, 32)).astype(np.float32)
         idx = TwoStageIndex(dim=32, capacity=256, prefilter="binary",
@@ -420,13 +420,13 @@ class TestPackedStage1:
     def test_engine_packed_stage1(self, gen, tokenizer):
         import jax
 
-        from sessionsimilaritysearch_tpu.config import tiny_test_config
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.config import tiny_test_config
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
-        from sessionsimilaritysearch_tpu.engine import SessionSearchEngine
-        from sessionsimilaritysearch_tpu.models import (
+        from sessionsimilaritysearch.engine import SessionSearchEngine
+        from sessionsimilaritysearch.models import (
             build_text_session_encoder,
         )
 
@@ -453,13 +453,13 @@ class TestShardedTwoStage:
 
     @pytest.fixture(scope="class")
     def mesh(self):
-        from sessionsimilaritysearch_tpu.parallel import create_mesh
+        from sessionsimilaritysearch.parallel import create_mesh
 
         return create_mesh()
 
     def test_collective_full_pool_matches_oracle(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.index.twostage import _simhash_signs
-        from sessionsimilaritysearch_tpu.parallel.collectives import (
+        from sessionsimilaritysearch.index.twostage import _simhash_signs
+        from sessionsimilaritysearch.parallel.collectives import (
             shard_corpus,
             sharded_twostage_topk,
         )
@@ -479,7 +479,7 @@ class TestShardedTwoStage:
         assert np.all(np.diff(np.asarray(vals), axis=1) <= 1e-6)
 
     def test_index_streaming_global_ids(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
 
         idx = ShardedTwoStageIndex(dim=32, capacity=1024, mesh=mesh,
                                    n_bits=64, pool=64)
@@ -493,7 +493,7 @@ class TestShardedTwoStage:
         np.testing.assert_array_equal(I[:, 0], np.arange(632, 640))
 
     def test_index_full_pool_exact(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
 
         corpus = rng.standard_normal((512, 24)).astype(np.float32)
         q = rng.standard_normal((5, 24)).astype(np.float32)
@@ -508,7 +508,7 @@ class TestShardedTwoStage:
     def test_index_itq_prefilter(self, mesh, rng):
         """Learned (ITQ) sign codes flow through the sharded form: full-
         pool search matches exact, snapshots round-trip the projector."""
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
 
         corpus = rng.standard_normal((512, 24)).astype(np.float32)
         q = rng.standard_normal((5, 24)).astype(np.float32)
@@ -525,8 +525,8 @@ class TestShardedTwoStage:
     def test_itq_save_load_restripe(self, mesh, tmp_path, rng):
         import jax as _jax
 
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
-        from sessionsimilaritysearch_tpu.parallel import create_mesh
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.parallel import create_mesh
 
         corpus = rng.standard_normal((256, 16)).astype(np.float32)
         q = rng.standard_normal((4, 16)).astype(np.float32)
@@ -548,9 +548,9 @@ class TestShardedTwoStage:
 
     def test_index_int8x8_prefilter(self, mesh, rng):
         """The measured-fastest single-chip prefilter (int8x8) scales out:
-        per-shard int8 MXU stage-1 + exact full-dim re-rank; a full pool
+        per-shard int8 stage-1 + exact full-dim re-rank; a full pool
         makes the end-to-end result exact regardless of int8 noise."""
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
 
         corpus = rng.standard_normal((512, 24)).astype(np.float32)
         q = rng.standard_normal((5, 24)).astype(np.float32)
@@ -565,7 +565,7 @@ class TestShardedTwoStage:
         assert value_recall_at_k(I, qn, cn, 6, rel_tol=BF16_TOL) == 1.0
 
     def test_index_pca_prefilter(self, mesh, rng):
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
 
         corpus = rng.standard_normal((512, 24)).astype(np.float32)
         q = rng.standard_normal((5, 24)).astype(np.float32)
@@ -583,8 +583,8 @@ class TestShardedTwoStage:
                                            prefilter):
         import jax as _jax
 
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
-        from sessionsimilaritysearch_tpu.parallel import create_mesh
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.parallel import create_mesh
 
         corpus = rng.standard_normal((256, 16)).astype(np.float32)
         q = rng.standard_normal((4, 16)).astype(np.float32)
@@ -610,8 +610,8 @@ class TestShardedTwoStage:
     def test_save_load_restripe(self, mesh, tmp_path, rng):
         import jax as _jax
 
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
-        from sessionsimilaritysearch_tpu.parallel import create_mesh
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.parallel import create_mesh
 
         corpus = rng.standard_normal((256, 16)).astype(np.float32)
         q = rng.standard_normal((4, 16)).astype(np.float32)
@@ -631,10 +631,9 @@ class TestShardedTwoStage:
 
     def test_index_packed_stage1_full_pool_exact(self, mesh, rng):
         """stage1='packed' sharded: per-chip 1 bit/bit transposed-packed
-        code buffers scanned by the unpack+matmul twin (XLA on the CPU
-        mesh; the Pallas kernel is the on-hardware path). Full per-shard
+        code buffers scanned by the unpack+matmul scan. Full per-shard
         pool == exact."""
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
 
         cap = 8 * 2048  # whole pack blocks per shard (the packed minimum)
         corpus = rng.standard_normal((1024, 24)).astype(np.float32)
@@ -652,7 +651,7 @@ class TestShardedTwoStage:
         Hamming top-p while matmul approx-selects: the packed result at a
         given pool must be at least as good. Compare both at full pool
         (identical exact results) and streaming fills."""
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
 
         cap = 8 * 2048
         rows = rng.standard_normal((2048, 24)).astype(np.float32)
@@ -672,7 +671,7 @@ class TestShardedTwoStage:
         """Stable-id removals + re-adds over the packed code buffers: the
         per-shard freed-range zeroing must keep later scatter-OR appends
         clean (the transposed-layout invariant, sharded form)."""
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
 
         cap = 8 * 2048
         rows = rng.standard_normal((512, 24)).astype(np.float32)
@@ -689,45 +688,11 @@ class TestShardedTwoStage:
         removed = set(range(0, 256, 3))
         assert not (set(I_all.reshape(-1).tolist()) & removed)
 
-    def test_sharded_packed_mosaic_fallback(self, mesh, rng, monkeypatch):
-        """If the packed kernel fails to lower (the documented dev-TPU
-        Mosaic condition), the sharded search must warn and degrade to
-        the XLA unpack+matmul twin permanently — BinaryIndex._pallas_broken
-        semantics — instead of hard-crashing the engine config."""
-        import warnings as _warnings
-
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
-        from sessionsimilaritysearch_tpu.ops import pallas_mips
-
-        rows = rng.standard_normal((512, 24)).astype(np.float32)
-        # capacity large enough that the kernel's bucket budget accepts
-        # the pool (shard_rows/16 >= pool), so the kernel path is chosen
-        idx = ShardedTwoStageIndex(dim=24, capacity=8 * 16384, mesh=mesh,
-                                   n_bits=64, stage1="packed",
-                                   use_pallas=True, pool=128)
-        idx.add(rows)
-        calls = []
-
-        def boom(*a, **k):
-            calls.append(1)
-            raise RuntimeError("Mosaic lowering failed (simulated)")
-
-        monkeypatch.setattr(pallas_mips, "pallas_packed_topk", boom)
-        with _warnings.catch_warnings(record=True) as w:
-            _warnings.simplefilter("always")
-            _, I = idx.search(rows[:5], 5)
-        assert calls, "kernel path was never attempted"
-        np.testing.assert_array_equal(I[:, 0], np.arange(5))
-        assert any("falling back" in str(x.message) for x in w)
-        assert idx.use_pallas is False  # degraded permanently
-        _, I = idx.search(rows[5:10], 5)  # straight to the twin now
-        np.testing.assert_array_equal(I[:, 0], np.arange(5, 10))
-
     def test_sharded_packed_save_load_restripe(self, mesh, tmp_path, rng):
         import jax as _jax
 
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
-        from sessionsimilaritysearch_tpu.parallel import create_mesh
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.parallel import create_mesh
 
         cap = 8 * 2048
         rows = rng.standard_normal((512, 24)).astype(np.float32)
@@ -747,13 +712,13 @@ class TestShardedTwoStage:
     def test_engine_sharded_prefilter(self, mesh, gen, tokenizer):
         import jax as _jax
 
-        from sessionsimilaritysearch_tpu.config import tiny_test_config
-        from sessionsimilaritysearch_tpu.engine import SessionSearchEngine
-        from sessionsimilaritysearch_tpu.index import ShardedTwoStageIndex
-        from sessionsimilaritysearch_tpu.models import (
+        from sessionsimilaritysearch.config import tiny_test_config
+        from sessionsimilaritysearch.engine import SessionSearchEngine
+        from sessionsimilaritysearch.index import ShardedTwoStageIndex
+        from sessionsimilaritysearch.models import (
             build_text_session_encoder,
         )
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
@@ -780,12 +745,12 @@ class TestEngineTwoStage:
     def test_engine_prefilter_mode(self, gen, tokenizer):
         import jax
 
-        from sessionsimilaritysearch_tpu.config import tiny_test_config
-        from sessionsimilaritysearch_tpu.engine import SessionSearchEngine
-        from sessionsimilaritysearch_tpu.models import (
+        from sessionsimilaritysearch.config import tiny_test_config
+        from sessionsimilaritysearch.engine import SessionSearchEngine
+        from sessionsimilaritysearch.models import (
             build_text_session_encoder,
         )
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
@@ -824,12 +789,12 @@ class TestEngineTwoStage:
         projector (engine.py pass-through)."""
         import jax
 
-        from sessionsimilaritysearch_tpu.config import tiny_test_config
-        from sessionsimilaritysearch_tpu.engine import SessionSearchEngine
-        from sessionsimilaritysearch_tpu.models import (
+        from sessionsimilaritysearch.config import tiny_test_config
+        from sessionsimilaritysearch.engine import SessionSearchEngine
+        from sessionsimilaritysearch.models import (
             build_text_session_encoder,
         )
-        from sessionsimilaritysearch_tpu.data.graph import (
+        from sessionsimilaritysearch.data.graph import (
             batch_graphs,
             sequence_to_graph,
         )
